@@ -1,0 +1,65 @@
+"""Binary-input AWGN channel and its decoder family (counterpart of
+``ldpc_decoders_tpu.channels.biawgn``).
+
+BPSK maps bits {0,1} to {-1,+1}; the channel parameter is the SNR in dB
+with noise_var = 10^(-snr/10); LLR = -2y/noise_var. Arithmetic is float32
+in the JAX package's order, so the same noise gives the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
+
+
+def noise_var(snr_db):
+    return 10.0 ** (-snr_db / 10.0)
+
+
+def _f32(val, like: torch.Tensor) -> torch.Tensor:
+    # A 0-dim tensor on the data's device, not a Python scalar: the
+    # operation then rounds exactly like JAX's weakly typed float32
+    # constant (CUDA divides by a host scalar as a multiply by its
+    # reciprocal, which rounds differently). ``full`` fills on the device,
+    # without a host-to-device copy.
+    return torch.full((), val, dtype=torch.float32, device=like.device)
+
+
+def send(x: torch.Tensor, snr_db,
+         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """x [B, n] in {0,1} -> y [B, n] float32, noise from ``generator``
+    (which must live on x's device)."""
+    noise = torch.randn(x.shape, generator=generator, dtype=torch.float32,
+                        device=x.device)
+    std = torch.sqrt(_f32(noise_var(snr_db), x))
+    return (2.0 * x.to(torch.float32) - 1.0) + std * noise
+
+
+def llr(y: torch.Tensor, snr_db) -> torch.Tensor:
+    return -2.0 * y / _f32(noise_var(snr_db), y)
+
+
+class _AWGNLLRWrapped:
+    """Adapts an LLR-domain decoder to channel outputs y."""
+
+    def __init__(self, dec):
+        self.dec = dec
+        self.id_keys = dec.id_keys
+
+    def decode(self, y, snr_db):
+        x_hat, iters = self.dec.decode(llr(y, snr_db))
+        return x_hat, {"iters": iters}
+
+
+# check_init=False: the reference initializes x_hat to the real-valued y,
+# which never satisfies the syndrome, so biAWGN BP always runs at least
+# one iteration.
+def MSA(code, device=None, **kw):
+    return _AWGNLLRWrapped(BPDecoder(code.graph, "MSA", check_init=False,
+                                     device=device, **kw))
+
+
+DECODERS = {"MSA": MSA}

@@ -1,0 +1,70 @@
+"""Batched LLR-domain belief propagation (counterpart of
+``ldpc_decoders_tpu.decoders.bp``): the min-sum variant.
+
+``BPDecoder("MSA").decode(llr)`` runs the whole decode loop through
+:func:`~ldpc_decoders_tpu_torch.ops.msa_kernel.msa_decode`: the CUDA kernel
+for CUDA tensors, its plain PyTorch version for CPU tensors. Messages are
+bf16 or f32, as ``msg_dtype`` says — never swapped behind the caller's
+back. Semantics are the JAX package's: ``check_init`` (the biAWGN factory
+sets False), the per-word done freeze, iteration counts, and
+``max_iter <= 0`` meaning "run to convergence", bounded by ``iter_cap``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ldpc_decoders_tpu_torch.ops.graph import TannerGraph
+from ldpc_decoders_tpu_torch.ops.msa_kernel import (  # noqa: F401
+    MSG_DTYPES,
+    msa_check_rows,
+    msa_decode,
+    msa_tables,
+)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class BPDecoder:
+    """Batched min-sum decoder over a compiled Tanner graph.
+
+    ``decode(llr)``: llr [B, V] on ``device`` -> (x_hat [B, V] int32,
+    iters [B] int32)."""
+
+    id_keys = ["max_iter"]
+
+    def __init__(self, graph: TannerGraph, variant: str = "MSA",
+                 max_iter: int = 10, iter_cap: int = 1000,
+                 msg_dtype=torch.float32, perm: str = "auto",
+                 check_init: bool = True, device=None, **_):
+        if variant == "SPA":
+            raise NotImplementedError(
+                "SPA is not ported yet (ROADMAP A.4 and B, kernel #4)")
+        if variant != "MSA":
+            raise ValueError(f"unknown BP variant {variant!r}")
+        if perm != "auto":
+            raise NotImplementedError(
+                f"perm={perm!r}: the port has one route per device (kernel "
+                "on CUDA, plain PyTorch on the CPU); the JAX package's "
+                "incidence/matmul/gather routes are not ported (ROADMAP A.4)")
+        msg_dtype = _DTYPES.get(msg_dtype, msg_dtype)
+        if msg_dtype not in MSG_DTYPES:
+            raise ValueError(f"msg_dtype must be bfloat16 or float32, "
+                             f"not {msg_dtype}")
+        self.graph = graph if device is None else graph.to(device)
+        self.variant = variant
+        self.check_init = bool(check_init)
+        self.max_iter = int(max_iter)
+        self.iter_cap = self.max_iter if self.max_iter > 0 else int(iter_cap)
+        self.msg_dtype = msg_dtype
+        self.tables = msa_tables(self.graph)
+
+    def decode(self, llr: torch.Tensor) -> tuple:
+        return msa_decode(llr.to(torch.float32).contiguous(), self.tables,
+                          max_iter=self.iter_cap, check_init=self.check_init,
+                          msg_dtype=self.msg_dtype)
+
+    def decode_multi_cap(self, llr, caps):
+        raise NotImplementedError(
+            "decode_multi_cap (caps= snapshot planes) is not ported yet "
+            "(ROADMAP A.8)")

@@ -1,0 +1,8 @@
+"""Monte-Carlo experiment harness: sweep runner, adaptive termination and
+result persistence."""
+
+from ldpc_decoders_tpu_torch.harness.runner import (  # noqa: F401
+    MonteCarloRunner,
+    RunConfig,
+)
+from ldpc_decoders_tpu_torch.harness.saver import Saver  # noqa: F401

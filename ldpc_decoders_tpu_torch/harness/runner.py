@@ -1,0 +1,230 @@
+"""Adaptive Monte-Carlo sweep runner for one device (counterpart of
+``ldpc_decoders_tpu.harness.runner``).
+
+Each host-loop tick dispatches one super-batch chunk (sample -> transmit
+-> decode -> tally) on the device. A chunk returns ONE packed ``[wec,
+bec]`` tally; on a CUDA device it is copied without blocking into pinned
+host memory behind a CUDA event at dispatch time, so the host waits only
+when it consumes that chunk, pipeline-depth chunks later. The reference's
+``while wec < min_wec`` termination is a host loop over chunks whose
+stopping rule reads only consumed tallies, and every dispatched chunk is
+consumed, so the min-wec estimator stays unbiased.
+
+Each sweep point draws from its own ``torch.Generator`` seeded from
+(seed, point index).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from collections import OrderedDict, deque
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ldpc_decoders_tpu_torch.channels import CHANNELS
+from ldpc_decoders_tpu_torch.codes import get_code
+from ldpc_decoders_tpu_torch.harness.saver import Saver
+from ldpc_decoders_tpu_torch.utils.profiler import LoopProfiler
+
+
+@dataclasses.dataclass
+class RunConfig:
+    channel: str
+    code: str
+    decoder: str
+    params: Sequence[float] = (0.1, 0.01)
+    codeword: int = 0          # 0 / 1 / -1 = random codebook row
+    min_wec: int = 100
+    max_iter: int = 10
+    iter_cap: int = 2000
+    batch: int = 4096          # codewords per chunk
+    seed: int = 0
+    log_freq: float = 5.0
+    max_words: Optional[int] = None   # safety cap per sweep point
+    data_dir: Optional[str] = None
+    profile: bool = False             # LoopProfiler per-section timings
+    # BP message type, "float32" or "bfloat16": the kernel of that type
+    # runs; nothing downgrades f32 to bf16 behind the caller's back.
+    msg_dtype: str = "float32"
+    # Chunks in flight ahead of the host sync point. 1 = synchronous.
+    pipeline: int = 4
+    # Ramp the pipeline up from depth 1 and cap in-flight chunks by the
+    # expected chunks remaining to min_wec, so easy points do not decode
+    # ``pipeline`` surplus chunks past the target.
+    adaptive_pipeline: bool = True
+    device: str = "cuda"
+
+    def decoder_kwargs(self) -> dict:
+        return dict(max_iter=self.max_iter, iter_cap=self.iter_cap,
+                    msg_dtype=self.msg_dtype, device=self.device)
+
+
+class MonteCarloRunner:
+    """Runs one (channel, code, decoder) sweep to the target error count."""
+
+    def __init__(self, cfg: RunConfig):
+        self.cfg = cfg
+        if cfg.channel not in CHANNELS:
+            raise NotImplementedError(
+                f"channel {cfg.channel!r} is not ported yet (ROADMAP A.6)")
+        self.mod = CHANNELS[cfg.channel]
+        if cfg.decoder not in self.mod.DECODERS:
+            raise NotImplementedError(
+                f"decoder {cfg.decoder!r} is not ported yet (ROADMAP A)")
+        self.device = torch.device(cfg.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but no CUDA device "
+                               "is available (use --device cpu for the "
+                               "plain PyTorch route)")
+        self.code = get_code(cfg.code)
+        self.dec = self.mod.DECODERS[cfg.decoder](self.code,
+                                                  **cfg.decoder_kwargs())
+        if cfg.codeword == -1:
+            if self.code.cb is None:
+                raise ValueError("codeword -1 needs a code with a generator "
+                                 "(the built-in codes)")
+            self._cb = torch.as_tensor(self.code.cb, dtype=torch.int32,
+                                       device=self.device)
+
+        # Run identity: the JAX package's id-key convention.
+        id_keys = (["channel", "code", "decoder", "codeword", "min_wec"]
+                   + list(self.dec.id_keys or []))
+        cfg_vars = dataclasses.asdict(cfg)
+        self.id_keys = id_keys
+        self.id_vals = [cfg_vars[k] for k in id_keys]
+        self.log = logging.getLogger(".".join(str(v) for v in self.id_vals))
+        self.saver = (Saver(cfg.data_dir, list(zip(id_keys, self.id_vals)))
+                      if cfg.data_dir else None)
+
+    # ------------------------------------------------------------------
+    def _sample_x(self, gen: torch.Generator, batch: int) -> torch.Tensor:
+        if self.cfg.codeword == -1:
+            idx = torch.randint(0, self._cb.shape[0], (batch,),
+                                generator=gen, device=self.device)
+            return self._cb[idx]
+        return torch.full((batch, self.code.get_n()), self.cfg.codeword,
+                          dtype=torch.int32, device=self.device)
+
+    def _chunk(self, param, gen: torch.Generator) -> torch.Tensor:
+        """One super-batch -> the packed ``[wec, bec]`` tally, on device."""
+        x = self._sample_x(gen, self.cfg.batch)
+        y = self.mod.send(x, param, gen)
+        x_hat, _ = self.dec.decode(y, param)
+        errs = (x_hat != x).sum(dim=-1)
+        return torch.stack([(errs > 0).sum(), errs.sum()])
+
+    def _dispatch(self, param, gen: torch.Generator):
+        """Enqueue a chunk; returns (host tally, CUDA event or None)."""
+        tally = self._chunk(param, gen)
+        if not tally.is_cuda:
+            return tally, None
+        host = torch.empty(tally.shape, dtype=tally.dtype, pin_memory=True)
+        host.copy_(tally, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _generator(self, idx: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        seed = np.random.SeedSequence([self.cfg.seed, idx])
+        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0]))
+        return gen
+
+    # ------------------------------------------------------------------
+    def run_param(self, param: float, gen: torch.Generator) -> OrderedDict:
+        cfg = self.cfg
+        tot = wec = bec = 0
+        t_start = t_log = time.time()
+        # Throughput counts from after the first chunk lands (kernel
+        # build and warm-up excluded).
+        t_warm = None
+        tot_warm = 0
+        consumed = 0
+        pending: deque = deque()
+
+        def status() -> OrderedDict:
+            wer = wec / tot if tot else 0.0
+            ber = bec / (tot * self.code.get_n()) if tot else 0.0
+            vals = OrderedDict([("tot", int(tot)), ("wec", int(wec)),
+                                ("wer", float(wer)), ("bec", int(bec)),
+                                ("ber", float(ber))])
+            if t_warm is not None and tot > tot_warm:
+                wps = (tot - tot_warm) / (time.time() - t_warm)
+            else:
+                elapsed = time.time() - t_start
+                wps = tot / elapsed if elapsed > 0 else 0.0
+            vals["words_per_sec"] = float(wps)
+            return vals
+
+        def log_status():
+            v = status()
+            self.log.info(", ".join(
+                f"{k.upper()}:{v[k]}" for k in
+                ("tot", "wec", "wer", "bec", "ber", "words_per_sec")))
+            if self.saver:
+                self.saver.add(param, v)
+
+        def consume():
+            nonlocal tot, wec, bec, t_warm, tot_warm, consumed
+            host, event = pending.popleft()
+            if event is not None:
+                event.synchronize()
+            w, b = host.tolist()
+            consumed += 1
+            wec += int(w)
+            bec += int(b)
+            tot += cfg.batch
+            if t_warm is None:
+                t_warm = time.time()
+                tot_warm = tot
+
+        depth = max(1, int(cfg.pipeline))
+
+        def effective_depth(tick: int) -> int:
+            """Pipeline-fill target: a 1-2-4-... ramp, capped (once errors
+            are seen) by the expected chunks remaining to min_wec."""
+            if not cfg.adaptive_pipeline:
+                return depth
+            eff = min(depth, 1 << min(tick - 1, 10))
+            if wec > 0 and consumed > 0 and wec < cfg.min_wec:
+                exp_remaining = (cfg.min_wec - wec) * consumed / wec
+                eff = min(eff, max(1, int(np.ceil(exp_remaining))))
+            return eff
+
+        prof = LoopProfiler(self.log, dump_freq=20 if cfg.profile else 0)
+        chunk_i = 0
+        while wec < cfg.min_wec:
+            with prof.start():
+                chunk_i += 1
+                with prof.tag("dispatch"):
+                    pending.append(self._dispatch(param, gen))
+                while len(pending) >= effective_depth(chunk_i):
+                    with prof.tag("consume"):
+                        consume()
+                if time.time() - t_log > cfg.log_freq:
+                    t_log = time.time()
+                    with prof.tag("log"):
+                        log_status()
+            if cfg.max_words and tot + cfg.batch * len(pending) >= cfg.max_words:
+                self.log.warning("max_words cap hit at %d", tot)
+                break
+        # Drain in-flight chunks: their inclusion is outcome-independent.
+        while pending:
+            consume()
+        self.last_dispatch_stats = {"dispatched": chunk_i,
+                                    "consumed": consumed}
+        log_status()
+        return status()
+
+    def run(self) -> dict:
+        """Full sweep. Returns {param: metrics}."""
+        results = {}
+        for idx, param in enumerate(self.cfg.params):
+            self.log.info("Starting parameter: %f", param)
+            results[param] = self.run_param(param, self._generator(idx))
+        self.log.info("Done!")
+        return results

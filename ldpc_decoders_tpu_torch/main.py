@@ -1,0 +1,158 @@
+"""Command-line entry point: ``python -m ldpc_decoders_tpu_torch.main <channel> <code> <decoder>``.
+
+The JAX package's argv contract for everything the port runs, plus
+``--device`` (default ``cuda``). The JAX package's other flags are
+accepted; set to anything but their default they stop with an error that
+names the ROADMAP item still to port. ``--bf16`` selects the bf16-message
+kernel; without it the f32 kernel runs (nothing is downgraded silently).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+from ldpc_decoders_tpu_torch.channels import CHANNELS, DECODER_NAMES
+from ldpc_decoders_tpu_torch.codes import get_code_names
+from ldpc_decoders_tpu_torch.harness import MonteCarloRunner, RunConfig
+from ldpc_decoders_tpu_torch.utils.file import make_dir_if_not_exists, resolve_data_dir_os
+
+# Flags of the JAX CLI whose features are not ported -> ROADMAP item.
+_NOT_PORTED = {
+    "--mu": "A.9 (ADMM)", "--eps": "A.9 (ADMM)",
+    "--allow-pseudo": "A.9 (ADMM)", "--presort": "A.9 (ADMM)",
+    "--layers": "A.13 (ADMMA)", "--train": "A.13 (ADMMA)",
+    "--apprx": "A.13 (ADMMA)", "--cache_dir": "A.13 (ADMMA)",
+    "--plots_dir": "A.16 (plots)", "--mesh": "A.15 (multi-device)",
+    "--mesh-code": "A.15 (edge-sharded BP)", "--inf-policy": "A.4 (SPA)",
+    "--kernel": "A.4 (the port has one route per device)",
+}
+_CHANNEL_ITEM = {"bsc": "A.6", "bec": "A.6"}
+_DECODER_ITEM = {"ML": "A.7", "SPA": "A.4", "LP": "A.10", "ADMM": "A.9",
+                 "ADMMA": "A.13"}
+
+
+def bind_parser_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Common output/logging flags."""
+    base = resolve_data_dir_os("decoders")
+    path_ = lambda p: os.path.abspath(os.path.join(base, p))  # noqa: E731
+    parser.add_argument("--data_dir", default=path_("data"),
+                        help="location for writing simulation output")
+    parser.add_argument("--cache_dir", default=path_("cache"),
+                        help="cache directory for ADMMA checkpoints "
+                             "(not ported)")
+    parser.add_argument("--plots_dir", default=path_("plots"),
+                        help="save location of plots (not ported)")
+    parser.add_argument("--debug", action="store_true", help="log debug info")
+    parser.add_argument("--console", action="store_true",
+                        help="log to console instead of <data_dir>/test.log")
+    return parser
+
+
+def setup_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="LDPC Monte-Carlo channel simulation (PyTorch / CUDA)")
+    parser.add_argument("channel", choices=sorted({*CHANNELS, *_CHANNEL_ITEM}))
+    parser.add_argument("code", choices=get_code_names(),
+                        help="code name (set FILE_CODES_DIR for file codes)")
+    parser.add_argument("decoder", choices=DECODER_NAMES)
+
+    parser.add_argument("--codeword", type=int, default=0, choices=[-1, 0, 1],
+                        help="transmitted codeword: 0 all-zero, 1 all-ones, "
+                             "-1 random codebook row (small codes only)")
+    parser.add_argument("--min-wec", type=int, default=100,
+                        help="min word errors to accumulate per sweep point")
+    parser.add_argument("--params", nargs="+", type=float, default=[.1, .01],
+                        help="channel parameter sweep values")
+    parser.add_argument("--max-iter", type=int, default=10,
+                        help="max iterations (<=0: run to convergence)")
+    parser.add_argument("--mu", type=float, default=3.0, help="ADMM mu")
+    parser.add_argument("--eps", type=float, default=1e-5, help="ADMM eps")
+    parser.add_argument("--allow-pseudo", action="store_true",
+                        help="keep fractional pseudo-codewords (LP/ADMM)")
+    parser.add_argument("--layers", nargs="+", type=int, default=[100, 100],
+                        help="ADMMA MLP hidden layers")
+    parser.add_argument("--train", action="store_true",
+                        help="train ADMMA online")
+    parser.add_argument("--apprx", type=int, default=-1,
+                        help="ADMMA approximate-projection iterations")
+    parser.add_argument("--log-freq", type=float, default=5.0,
+                        help="status log cadence, seconds")
+    parser.add_argument("--batch", type=int, default=4096,
+                        help="codewords per chunk")
+    parser.add_argument("--seed", type=int, default=0, help="PRNG seed")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="shard the batch over N devices (not ported)")
+    parser.add_argument("--mesh-code", type=int, default=0,
+                        help="shard parity checks over N devices (not "
+                             "ported)")
+    parser.add_argument("--max-words", type=int, default=None,
+                        help="safety cap on words per sweep point")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 BP messages (the bf16 kernel); "
+                             "without it the float32 kernel runs")
+    parser.add_argument("--inf-policy", choices=["reference", "saturate"],
+                        default="reference",
+                        help="SPA saturation semantics (not ported)")
+    parser.add_argument("--kernel", choices=["auto", "xla", "pallas"],
+                        default="auto",
+                        help="JAX compute route (not ported: the port runs "
+                             "the CUDA kernel on cuda, plain PyTorch on cpu)")
+    parser.add_argument("--pipeline", type=int, default=4,
+                        help="chunks in flight ahead of the host sync")
+    parser.add_argument("--fixed-pipeline", action="store_true",
+                        help="disable the adaptive pipeline fill")
+    parser.add_argument("--profile", action="store_true",
+                        help="log per-section LoopProfiler timings")
+    parser.add_argument("--presort", choices=["auto", "on", "off"],
+                        default="auto", help="ADMM probe-and-sort (not ported)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: cuda (the CUDA kernel) or cpu "
+                             "(the plain PyTorch version)")
+    return bind_parser_common(parser)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = setup_parser()
+    args = parser.parse_args(argv)
+    if args.channel in _CHANNEL_ITEM:
+        parser.error(f"channel {args.channel!r} is not ported yet "
+                     f"(ROADMAP {_CHANNEL_ITEM[args.channel]})")
+    if args.decoder in _DECODER_ITEM:
+        parser.error(f"decoder {args.decoder!r} is not ported yet "
+                     f"(ROADMAP {_DECODER_ITEM[args.decoder]})")
+    for flag, item in _NOT_PORTED.items():
+        dest = flag[2:].replace("-", "_")
+        if getattr(args, dest) != parser.get_default(dest):
+            parser.error(f"{flag} is not ported yet (ROADMAP {item})")
+    return args
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    level = logging.DEBUG if args.debug else logging.INFO
+    if args.console:
+        logging.basicConfig(format="%(name)s|%(message)s", level=level)
+    else:
+        make_dir_if_not_exists(args.data_dir)
+        logging.basicConfig(
+            filename=os.path.join(args.data_dir, "test.log"), filemode="a",
+            format="%(asctime)s,%(msecs)03d|%(name)s|%(levelname)s|%(message)s",
+            datefmt="%H:%M:%S", level=level)
+
+    cfg = RunConfig(
+        channel=args.channel, code=args.code, decoder=args.decoder,
+        params=args.params, codeword=args.codeword, min_wec=args.min_wec,
+        max_iter=args.max_iter, batch=args.batch, seed=args.seed,
+        log_freq=args.log_freq, max_words=args.max_words,
+        data_dir=args.data_dir, profile=args.profile,
+        msg_dtype="bfloat16" if args.bf16 else "float32",
+        pipeline=args.pipeline, adaptive_pipeline=not args.fixed_pipeline,
+        device=args.device)
+    print(vars(args))
+    return MonteCarloRunner(cfg).run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,139 @@
+"""Static edge-table representation of a Tanner graph (counterpart of
+``ldpc_decoders_tpu.ops.graph``).
+
+The tables are built once in numpy, in exactly the JAX package's layout,
+and held as torch tensors on an explicit ``device``:
+
+- edges are numbered in CSR order (sorted by check row, then variable);
+- ``chk_edge`` [C, Dc] / ``var_edge`` [V, Dv] list each node's edge ids,
+  padded to the maximum degree with the sentinel ``n_edge``;
+- ``var_slot_from_chk`` / ``chk_slot_from_var`` map a slot of one padded
+  layout to the flat index of the same edge in the other (sentinel: the
+  other layout's size, i.e. an appended fill slot).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# Integer table fields, in declaration order (shared by the numpy-dict
+# conversions below).
+_TENSOR_FIELDS = (
+    "edge_chk", "edge_var", "chk_edge", "chk_mask", "var_edge", "var_mask",
+    "chk_deg", "var_deg", "edge_in_chk", "edge_in_var",
+    "var_slot_from_chk", "chk_slot_from_var",
+)
+_INT_FIELDS = ("n_chk", "n_var", "n_edge", "max_chk_deg", "max_var_deg")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TannerGraph:
+    """Compiled, immutable edge tables for one parity-check matrix."""
+
+    n_chk: int
+    n_var: int
+    n_edge: int
+    edge_chk: torch.Tensor           # [E] int32, CSR order
+    edge_var: torch.Tensor           # [E] int32
+    chk_edge: torch.Tensor           # [C, Dc] int32, padded with n_edge
+    chk_mask: torch.Tensor           # [C, Dc] bool
+    var_edge: torch.Tensor           # [V, Dv] int32, padded with n_edge
+    var_mask: torch.Tensor           # [V, Dv] bool
+    chk_deg: torch.Tensor            # [C] int32
+    var_deg: torch.Tensor            # [V] int32
+    max_chk_deg: int
+    max_var_deg: int
+    edge_in_chk: torch.Tensor        # [E] int32 into flat [C*Dc]
+    edge_in_var: torch.Tensor        # [E] int32 into flat [V*Dv]
+    var_slot_from_chk: torch.Tensor  # [V*Dv] int32 into flat [C*Dc]+fill
+    chk_slot_from_var: torch.Tensor  # [C*Dc] int32 into flat [V*Dv]+fill
+    chk_degrees: tuple
+    device: torch.device
+
+    @staticmethod
+    def from_parity_mtx(parity_mtx: np.ndarray,
+                        device="cpu") -> "TannerGraph":
+        """Compile a dense 0/1 parity-check matrix H of shape [C, V]."""
+        H = np.asarray(parity_mtx)
+        n_chk, n_var = H.shape
+        rows, cols = np.nonzero(H)     # row-major: CSR edge order
+        E = rows.size
+
+        def build_side(node_of_edge: np.ndarray, n_nodes: int):
+            deg = np.bincount(node_of_edge, minlength=n_nodes).astype(np.int32)
+            dmax = int(deg.max()) if E else 1
+            # Slot of each edge = its rank among its node's edges, in edge
+            # order (a stable sort keeps CSR order within a node).
+            order = np.argsort(node_of_edge, kind="stable")
+            starts = np.concatenate([[0], np.cumsum(deg)[:-1]])
+            slot = np.empty(E, dtype=np.int64)
+            slot[order] = np.arange(E) - starts[node_of_edge[order]]
+            table = np.full((n_nodes, dmax), E, dtype=np.int32)
+            table[node_of_edge, slot] = np.arange(E, dtype=np.int32)
+            inv = (node_of_edge * dmax + slot).astype(np.int32)
+            return deg, dmax, table, table != E, inv
+
+        chk_deg, dc, chk_edge, chk_mask, edge_in_chk = build_side(rows, n_chk)
+        var_deg, dv, var_edge, var_mask, edge_in_var = build_side(cols, n_var)
+
+        def compose(inv_a, slots_a, edge_in_b, sentinel_b):
+            # Slot of layout a -> flat index of the same edge in layout b.
+            out = np.full(slots_a, sentinel_b, dtype=np.int32)
+            out[inv_a] = edge_in_b
+            return out
+
+        return TannerGraph.from_jax_graph(dict(
+            n_chk=n_chk, n_var=n_var, n_edge=E,
+            edge_chk=rows.astype(np.int32), edge_var=cols.astype(np.int32),
+            chk_edge=chk_edge, chk_mask=chk_mask,
+            var_edge=var_edge, var_mask=var_mask,
+            chk_deg=chk_deg, var_deg=var_deg,
+            max_chk_deg=dc, max_var_deg=dv,
+            edge_in_chk=edge_in_chk, edge_in_var=edge_in_var,
+            var_slot_from_chk=compose(edge_in_var, n_var * dv, edge_in_chk,
+                                      n_chk * dc),
+            chk_slot_from_var=compose(edge_in_chk, n_chk * dc, edge_in_var,
+                                      n_var * dv),
+        ), device=device)
+
+    @staticmethod
+    def from_jax_graph(tables: dict, device="cpu") -> "TannerGraph":
+        """Build from the JAX package's ``TannerGraph`` fields given as a
+        dict of numpy arrays and ints (``{f: np.asarray(getattr(g, f))}``),
+        so tests can feed both packages the same tables."""
+        dev = torch.device(device)
+        t = {k: torch.as_tensor(np.array(tables[k]), device=dev)
+             for k in _TENSOR_FIELDS}
+        for k in ("chk_mask", "var_mask"):
+            t[k] = t[k].to(torch.bool)
+        for k in set(_TENSOR_FIELDS) - {"chk_mask", "var_mask"}:
+            t[k] = t[k].to(torch.int32)
+        ints = {k: int(tables[k]) for k in _INT_FIELDS}
+        chk_degrees = tuple(sorted(set(
+            int(d) for d in np.asarray(tables["chk_deg"]))))
+        return TannerGraph(**ints, **t, chk_degrees=chk_degrees, device=dev)
+
+    def as_numpy_dict(self) -> dict:
+        """The tables as numpy arrays and ints (``from_jax_graph``'s input)."""
+        out = {k: getattr(self, k) for k in _INT_FIELDS}
+        out.update({k: getattr(self, k).cpu().numpy() for k in _TENSOR_FIELDS})
+        return out
+
+    def to(self, device) -> "TannerGraph":
+        """The same tables on ``device``."""
+        dev = torch.device(device)
+        if dev == self.device:
+            return self
+        return dataclasses.replace(
+            self, device=dev,
+            **{k: getattr(self, k).to(dev) for k in _TENSOR_FIELDS})
+
+
+def exclusive_sign_parity(neg: torch.Tensor) -> torch.Tensor:
+    """Leave-one-out sign product along the last axis from a 0/1
+    negativity mask, as negative-count parity. Returns int +-1."""
+    excl = neg.sum(dim=-1, keepdim=True) - neg   # exact: integer counts
+    return 1 - 2 * (excl % 2)

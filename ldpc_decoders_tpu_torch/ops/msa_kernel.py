@@ -1,0 +1,192 @@
+"""Whole-loop min-sum BP decode: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+``msa_decode`` picks the route by the device of ``llr``: a CPU tensor runs
+``msa_decode_plain``; a CUDA tensor launches the hand-written kernel
+``csrc/msa_decode.cu`` (the port of
+``ldpc_decoders_tpu/ops/pallas_bp.py:_kernel``) or raises. There is no
+fallback from the kernel to the plain version.
+
+Both routes follow the Pallas kernel's semantics, not the JAX gather
+route's (the two differ in bf16):
+
+- the first v2c is msg(llr); afterwards v2c = msg(f32(msg(marg)) - c2v),
+  i.e. the marginal is rounded to the message type BEFORE the subtraction;
+- check node: leave-one-out two-min with the first minimal slot as argmin,
+  times the parity of the other slots' ``p < 0``; the 1e30 degree-1 guard;
+- marg = llr + (sum of c2v over the variable's slots, added one at a time
+  in slot order — no ``tensor.sum(dim)``, whose order is not fixed), so
+  the plain version and the kernel are bit-equal in bf16 AND in f32;
+- x_hat = marg < 0; the syndrome is checked on the updated x_hat after
+  every iteration (``check_init`` adds a check before the first); a word
+  whose syndrome passes is frozen; ``iters`` counts its active iterations.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ldpc_decoders_tpu_torch.ops._build import load_library
+from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, exclusive_sign_parity
+
+MSA_DEG1_GUARD = 1e30   # replaces the +inf a degree-1 check would emit
+THREADS = 256           # CUDA threads per codeword (one CTA per word)
+MSG_DTYPES = (torch.bfloat16, torch.float32)
+
+
+class MSATables(NamedTuple):
+    """Index tables of one graph for both routes, on the graph's device."""
+    chk_var: torch.Tensor    # [C, Dc] int64 variable of each check slot (pad 0)
+    cmask: torch.Tensor      # [C, Dc] bool
+    var_slot: torch.Tensor   # [V, Dv] int64 flat c*Dc+d of each var slot (pad 0)
+    vmask: torch.Tensor      # [V, Dv] bool
+    k_chk_var: torch.Tensor  # [Dc, C] int32, -1 = pad (kernel, slot-major)
+    k_var_slot: torch.Tensor  # [Dv, V] int32 into slot-major [Dc, C], -1 = pad
+
+
+def msa_tables(graph: TannerGraph) -> MSATables:
+    g = graph
+    C, V, Dc = g.n_chk, g.n_var, g.max_chk_deg
+    cmask = g.chk_mask.cpu().numpy()
+    vmask = g.var_mask.cpu().numpy()
+    edge_var = np.append(g.edge_var.cpu().numpy(), 0)      # sentinel E -> 0
+    chk_var = np.where(cmask, edge_var[g.chk_edge.cpu().numpy()], 0)
+    var_slot = np.where(
+        vmask, g.var_slot_from_chk.cpu().numpy().reshape(V, -1), 0)
+    k_var_slot = np.where(vmask, (var_slot % Dc) * C + var_slot // Dc, -1)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=g.device)
+
+    return MSATables(
+        chk_var=dev(chk_var, torch.int64), cmask=dev(cmask, torch.bool),
+        var_slot=dev(var_slot, torch.int64), vmask=dev(vmask, torch.bool),
+        k_chk_var=dev(np.where(cmask, chk_var, -1).T, torch.int32),
+        k_var_slot=dev(k_var_slot.T, torch.int32))
+
+
+def msa_check_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Min-sum extrinsic messages per check row: sign-parity times the
+    leave-one-out min via (min1, argmin, min2). [..., C, Dc] -> same.
+    ``argmin`` returns the first minimal slot, so a tie gives min2 == min1."""
+    mg = torch.where(mask, rows.abs(), torch.inf)
+    neg = (mask & (rows < 0)).to(torch.int32)
+    min1 = mg.amin(dim=-1, keepdim=True)
+    amin = mg.argmin(dim=-1, keepdim=True)
+    is_min = torch.arange(mg.shape[-1], device=mg.device) == amin
+    min2 = torch.where(is_min, torch.inf, mg).amin(dim=-1, keepdim=True)
+    ext = torch.where(is_min, min2, min1).clamp_max(MSA_DEG1_GUARD)
+    return (ext * exclusive_sign_parity(neg)).to(rows.dtype)
+
+
+def _syndrome_ok(x_hat: torch.Tensor, t: MSATables) -> torch.Tensor:
+    """[B, V] bool bits -> [B] bool: every check's XOR is 0."""
+    bits = (x_hat[:, t.chk_var] & t.cmask).to(torch.int32)
+    return (bits.sum(dim=-1) % 2 == 0).all(dim=-1)
+
+
+def msa_decode_plain(llr: torch.Tensor, t: MSATables, *, max_iter: int,
+                     check_init: bool, msg_dtype: torch.dtype) -> tuple:
+    """The plain PyTorch version: llr [B, V] -> (x_hat [B, V] int32,
+    iters [B] int32), batched over [B, C, Dc] tensors with done masks."""
+    f32 = torch.float32
+
+    def rnd(v):
+        return v.to(msg_dtype).to(f32)
+
+    llr = llr.to(f32)
+    B = llr.shape[0]
+    C, Dc = t.chk_var.shape
+    Dv = t.var_slot.shape[1]
+    marg = llr.clone()
+    c2v = torch.zeros((B, C, Dc), dtype=f32, device=llr.device)
+    x_hat = llr < 0
+    done = (_syndrome_ok(x_hat, t) if check_init
+            else torch.zeros(B, dtype=torch.bool, device=llr.device))
+    iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
+    for _ in range(max_iter):
+        if bool(done.all()):
+            break
+        v2c = rnd(rnd(marg[:, t.chk_var]) - c2v)
+        c2v_new = rnd(msa_check_rows(v2c, t.cmask))
+        flat = c2v_new.reshape(B, C * Dc)
+        acc = torch.zeros_like(llr)
+        for s in range(Dv):            # slot order, one add at a time
+            acc = acc + torch.where(t.vmask[:, s], flat[:, t.var_slot[:, s]],
+                                    0.0)
+        active = ~done
+        marg = torch.where(active[:, None], llr + acc, marg)
+        c2v = torch.where(active[:, None, None], c2v_new, c2v)
+        x_hat = marg < 0
+        iters += active.to(torch.int32)
+        done = done | _syndrome_ok(x_hat, t)
+    return x_hat.to(torch.int32), iters
+
+
+def msa_decode_cuda(llr: torch.Tensor, t: MSATables, *, max_iter: int,
+                    check_init: bool, msg_dtype: torch.dtype) -> tuple:
+    """Launch ``csrc/msa_decode.cu`` on the current stream (no sync).
+    Counts launches in ``msa_decode_cuda.launches``."""
+    if not llr.is_cuda:
+        raise ValueError("msa_decode_cuda needs a CUDA tensor")
+    if llr.dtype != torch.float32 or llr.dim() != 2 or not llr.is_contiguous():
+        raise ValueError("llr must be a contiguous [B, V] float32 tensor")
+    if msg_dtype not in MSG_DTYPES:
+        raise ValueError(f"no kernel for message type {msg_dtype}")
+    Dc, C = t.k_chk_var.shape
+    Dv, V = t.k_var_slot.shape
+    if llr.shape[1] != V:
+        raise ValueError(f"llr has {llr.shape[1]} variables, graph has {V}")
+    if Dc > 32:
+        raise ValueError(f"check degree {Dc} > 32 (sign bitmask width)")
+    for tab in (t.k_chk_var, t.k_var_slot):
+        if (tab.device != llr.device or tab.dtype != torch.int32
+                or not tab.is_contiguous()):
+            raise ValueError("kernel tables must be contiguous int32 on the "
+                             "device of llr")
+    lib = _kernel_library()
+    B = llr.shape[0]
+    x_hat = torch.empty((B, V), dtype=torch.int32, device=llr.device)
+    iters = torch.empty((B,), dtype=torch.int32, device=llr.device)
+    stream = torch.cuda.current_stream(llr.device).cuda_stream
+    with torch.cuda.device(llr.device):
+        rc = lib.msa_decode_launch(
+            llr.data_ptr(), t.k_chk_var.data_ptr(), t.k_var_slot.data_ptr(),
+            x_hat.data_ptr(), iters.data_ptr(), B, C, V, Dc, Dv,
+            int(max_iter), int(bool(check_init)),
+            int(msg_dtype == torch.bfloat16), THREADS, stream)
+    if rc != 0:
+        raise RuntimeError("msa_decode kernel launch failed: "
+                           + lib.msa_decode_error_string(rc).decode())
+    msa_decode_cuda.launches += 1
+    return x_hat, iters
+
+
+msa_decode_cuda.launches = 0
+
+
+def _kernel_library() -> ctypes.CDLL:
+    lib = load_library("msa_decode")
+    if lib.msa_decode_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.msa_decode_launch.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
+        lib.msa_decode_launch.restype = i
+        lib.msa_decode_error_string.argtypes = [i]
+        lib.msa_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def msa_decode(llr: torch.Tensor, t: MSATables, *, max_iter: int,
+               check_init: bool, msg_dtype: torch.dtype) -> tuple:
+    """Route by device: CPU -> plain version, CUDA -> kernel (or raise)."""
+    kw = dict(max_iter=max_iter, check_init=check_init, msg_dtype=msg_dtype)
+    if llr.is_cuda:
+        return msa_decode_cuda(llr, t, **kw)
+    if llr.device.type == "cpu":
+        return msa_decode_plain(llr, t, **kw)
+    raise ValueError(f"no min-sum route for device {llr.device}")
