@@ -57,9 +57,14 @@ class _AWGNLLRWrapped:
 # check_init=False: the reference initializes x_hat to the real-valued y,
 # which never satisfies the syndrome, so biAWGN BP always runs at least
 # one iteration.
+def SPA(code, device=None, **kw):
+    return _AWGNLLRWrapped(BPDecoder(code.graph, "SPA", check_init=False,
+                                     device=device, **kw))
+
+
 def MSA(code, device=None, **kw):
     return _AWGNLLRWrapped(BPDecoder(code.graph, "MSA", check_init=False,
                                      device=device, **kw))
 
 
-DECODERS = {"MSA": MSA}
+DECODERS = {"SPA": SPA, "MSA": MSA}

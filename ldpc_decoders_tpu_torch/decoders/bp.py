@@ -1,47 +1,64 @@
 """Batched LLR-domain belief propagation (counterpart of
-``ldpc_decoders_tpu.decoders.bp``): the min-sum variant.
+``ldpc_decoders_tpu.decoders.bp``): sum-product (SPA) and min-sum (MSA).
 
-``BPDecoder("MSA").decode(llr)`` runs the whole decode loop through
-:func:`~ldpc_decoders_tpu_torch.ops.msa_kernel.msa_decode`: the CUDA kernel
-for CUDA tensors, its plain PyTorch version for CPU tensors. Messages are
-bf16 or f32, as ``msg_dtype`` says — never swapped behind the caller's
-back. Semantics are the JAX package's: ``check_init`` (the biAWGN factory
-sets False), the per-word done freeze, iteration counts, and
-``max_iter <= 0`` meaning "run to convergence", bounded by ``iter_cap``.
+``BPDecoder(variant).decode(llr)`` runs the whole decode loop through
+:func:`~ldpc_decoders_tpu_torch.ops.spa_kernel.spa_decode` (SPA) or
+:func:`~ldpc_decoders_tpu_torch.ops.msa_kernel.msa_decode` (MSA): the CUDA
+kernel for CUDA tensors, its plain PyTorch version for CPU tensors.
+Messages are bf16 or f32, as ``msg_dtype`` says — never swapped behind the
+caller's back. Semantics are the JAX package's: ``check_init`` (the biAWGN
+factories set False), the per-word done freeze, iteration counts,
+``max_iter <= 0`` meaning "run to convergence", bounded by ``iter_cap``,
+and SPA's ``inf_policy``: "reference" (the default) reproduces the
+reference decoder's float64 inf/NaN cascade, which the committed SPA
+goldens depend on; "saturate" is the clean decoder. MSA forces
+"saturate".
 """
 
 from __future__ import annotations
 
 import torch
 
-from ldpc_decoders_tpu_torch.ops.graph import TannerGraph
+from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, bp_tables
 from ldpc_decoders_tpu_torch.ops.msa_kernel import (  # noqa: F401
     MSG_DTYPES,
     msa_check_rows,
     msa_decode,
-    msa_tables,
+)
+from ldpc_decoders_tpu_torch.ops.spa_kernel import (  # noqa: F401
+    INF_POLICIES,
+    INF_S,
+    LLR_CLIP,
+    NAN_S,
+    PHI_EPS,
+    _INF_MIN,
+    _NAN_MIN,
+    phi,
+    spa_check_rows,
+    spa_check_rows_ref,
+    spa_decode,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class BPDecoder:
-    """Batched min-sum decoder over a compiled Tanner graph.
+    """Batched SPA/MSA decoder over a compiled Tanner graph.
 
     ``decode(llr)``: llr [B, V] on ``device`` -> (x_hat [B, V] int32,
     iters [B] int32)."""
 
     id_keys = ["max_iter"]
 
-    def __init__(self, graph: TannerGraph, variant: str = "MSA",
+    def __init__(self, graph: TannerGraph, variant: str = "SPA",
                  max_iter: int = 10, iter_cap: int = 1000,
                  msg_dtype=torch.float32, perm: str = "auto",
-                 check_init: bool = True, device=None, **_):
-        if variant == "SPA":
-            raise NotImplementedError(
-                "SPA is not ported yet (ROADMAP A.4 and B, kernel #4)")
-        if variant != "MSA":
+                 check_init: bool = True, inf_policy: str = "reference",
+                 device=None, **_):
+        if variant not in ("SPA", "MSA"):
             raise ValueError(f"unknown BP variant {variant!r}")
+        if inf_policy not in INF_POLICIES:
+            raise ValueError(f"unknown inf_policy {inf_policy!r}")
         if perm != "auto":
             raise NotImplementedError(
                 f"perm={perm!r}: the port has one route per device (kernel "
@@ -53,16 +70,20 @@ class BPDecoder:
                              f"not {msg_dtype}")
         self.graph = graph if device is None else graph.to(device)
         self.variant = variant
+        self.inf_policy = inf_policy if variant == "SPA" else "saturate"
         self.check_init = bool(check_init)
         self.max_iter = int(max_iter)
         self.iter_cap = self.max_iter if self.max_iter > 0 else int(iter_cap)
         self.msg_dtype = msg_dtype
-        self.tables = msa_tables(self.graph)
+        self.tables = bp_tables(self.graph)
 
     def decode(self, llr: torch.Tensor) -> tuple:
-        return msa_decode(llr.to(torch.float32).contiguous(), self.tables,
-                          max_iter=self.iter_cap, check_init=self.check_init,
-                          msg_dtype=self.msg_dtype)
+        kw = dict(max_iter=self.iter_cap, check_init=self.check_init,
+                  msg_dtype=self.msg_dtype)
+        llr = llr.to(torch.float32).contiguous()
+        if self.variant == "MSA":
+            return msa_decode(llr, self.tables, **kw)
+        return spa_decode(llr, self.tables, inf_policy=self.inf_policy, **kw)
 
     def decode_multi_cap(self, llr, caps):
         raise NotImplementedError(

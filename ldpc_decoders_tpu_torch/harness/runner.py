@@ -50,6 +50,10 @@ class RunConfig:
     # BP message type, "float32" or "bfloat16": the kernel of that type
     # runs; nothing downgrades f32 to bf16 behind the caller's back.
     msg_dtype: str = "float32"
+    # SPA inf handling: "reference" reproduces the reference decoder's
+    # float64 inf/NaN cascade, which the golden curves depend on;
+    # "saturate" is the clean decoder.
+    inf_policy: str = "reference"
     # Chunks in flight ahead of the host sync point. 1 = synchronous.
     pipeline: int = 4
     # Ramp the pipeline up from depth 1 and cap in-flight chunks by the
@@ -60,7 +64,8 @@ class RunConfig:
 
     def decoder_kwargs(self) -> dict:
         return dict(max_iter=self.max_iter, iter_cap=self.iter_cap,
-                    msg_dtype=self.msg_dtype, device=self.device)
+                    msg_dtype=self.msg_dtype, inf_policy=self.inf_policy,
+                    device=self.device)
 
 
 class MonteCarloRunner:

@@ -4,7 +4,8 @@ The JAX package's argv contract for everything the port runs, plus
 ``--device`` (default ``cuda``). The JAX package's other flags are
 accepted; set to anything but their default they stop with an error that
 names the ROADMAP item still to port. ``--bf16`` selects the bf16-message
-kernel; without it the f32 kernel runs (nothing is downgraded silently).
+kernel; without it the f32 kernel runs (nothing is downgraded silently,
+unlike the JAX harness, which moves f32 biAWGN BP to its bf16 kernel).
 """
 
 from __future__ import annotations
@@ -25,12 +26,11 @@ _NOT_PORTED = {
     "--layers": "A.13 (ADMMA)", "--train": "A.13 (ADMMA)",
     "--apprx": "A.13 (ADMMA)", "--cache_dir": "A.13 (ADMMA)",
     "--plots_dir": "A.16 (plots)", "--mesh": "A.15 (multi-device)",
-    "--mesh-code": "A.15 (edge-sharded BP)", "--inf-policy": "A.4 (SPA)",
+    "--mesh-code": "A.15 (edge-sharded BP)",
     "--kernel": "A.4 (the port has one route per device)",
 }
-_CHANNEL_ITEM = {"bsc": "A.6", "bec": "A.6"}
-_DECODER_ITEM = {"ML": "A.7", "SPA": "A.4", "LP": "A.10", "ADMM": "A.9",
-                 "ADMMA": "A.13"}
+_CHANNEL_ITEM = {"bec": "A.6"}
+_DECODER_ITEM = {"ML": "A.7", "LP": "A.10", "ADMM": "A.9", "ADMMA": "A.13"}
 
 
 def bind_parser_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -94,7 +94,8 @@ def setup_parser() -> argparse.ArgumentParser:
                              "without it the float32 kernel runs")
     parser.add_argument("--inf-policy", choices=["reference", "saturate"],
                         default="reference",
-                        help="SPA saturation semantics (not ported)")
+                        help="SPA inf semantics: the reference's float64 "
+                             "inf/NaN cascade, or clean saturation")
     parser.add_argument("--kernel", choices=["auto", "xla", "pallas"],
                         default="auto",
                         help="JAX compute route (not ported: the port runs "
@@ -148,6 +149,7 @@ def main(argv=None) -> dict:
         log_freq=args.log_freq, max_words=args.max_words,
         data_dir=args.data_dir, profile=args.profile,
         msg_dtype="bfloat16" if args.bf16 else "float32",
+        inf_policy=args.inf_policy,
         pipeline=args.pipeline, adaptive_pipeline=not args.fixed_pipeline,
         device=args.device)
     print(vars(args))

@@ -15,6 +15,7 @@ and held as torch tensors on an explicit ``device``:
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -130,6 +131,61 @@ class TannerGraph:
         return dataclasses.replace(
             self, device=dev,
             **{k: getattr(self, k).to(dev) for k in _TENSOR_FIELDS})
+
+
+class BPTables(NamedTuple):
+    """Index tables of one graph for the BP decoders' two routes (plain
+    PyTorch and CUDA kernel), on the graph's device."""
+    chk_var: torch.Tensor    # [C, Dc] int64 variable of each check slot (pad 0)
+    cmask: torch.Tensor      # [C, Dc] bool
+    var_slot: torch.Tensor   # [V, Dv] int64 flat c*Dc+d of each var slot (pad 0)
+    vmask: torch.Tensor      # [V, Dv] bool
+    k_chk_var: torch.Tensor  # [Dc, C] int32, -1 = pad (kernel, slot-major)
+    k_var_slot: torch.Tensor  # [Dv, V] int32 into slot-major [Dc, C], -1 = pad
+
+
+def bp_tables(graph: TannerGraph) -> BPTables:
+    g = graph
+    C, V, Dc = g.n_chk, g.n_var, g.max_chk_deg
+    cmask = g.chk_mask.cpu().numpy()
+    vmask = g.var_mask.cpu().numpy()
+    edge_var = np.append(g.edge_var.cpu().numpy(), 0)      # sentinel E -> 0
+    chk_var = np.where(cmask, edge_var[g.chk_edge.cpu().numpy()], 0)
+    var_slot = np.where(
+        vmask, g.var_slot_from_chk.cpu().numpy().reshape(V, -1), 0)
+    k_var_slot = np.where(vmask, (var_slot % Dc) * C + var_slot // Dc, -1)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=g.device)
+
+    return BPTables(
+        chk_var=dev(chk_var, torch.int64), cmask=dev(cmask, torch.bool),
+        var_slot=dev(var_slot, torch.int64), vmask=dev(vmask, torch.bool),
+        k_chk_var=dev(np.where(cmask, chk_var, -1).T, torch.int32),
+        k_var_slot=dev(k_var_slot.T, torch.int32))
+
+
+def syndrome_ok(x_hat: torch.Tensor, t: BPTables) -> torch.Tensor:
+    """[B, V] bool bits -> [B] bool: every check's XOR is 0."""
+    bits = (x_hat[:, t.chk_var] & t.cmask).to(torch.int32)
+    return (bits.sum(dim=-1) % 2 == 0).all(dim=-1)
+
+
+def exclusive_sum(x: torch.Tensor) -> torch.Tensor:
+    """Leave-one-out sum along the last axis as prefix + suffix. Both
+    partial sums start from 0 and add one slot at a time in slot order
+    (the prefix from the first slot up, the suffix from the last slot
+    down): no ``torch.cumsum``, whose association is not fixed. The CUDA
+    SPA kernel folds in the same order, so the two are bit-equal."""
+    d = x.shape[-1]
+    zero = torch.zeros_like(x[..., 0])
+    pre, suf = [zero], [zero]
+    for i in range(d - 1):
+        pre.append(pre[-1] + x[..., i])
+    for i in range(d - 1, 0, -1):
+        suf.insert(0, suf[0] + x[..., i])
+    return torch.stack([p + s for p, s in zip(pre, suf)], dim=-1)
 
 
 def exclusive_sign_parity(neg: torch.Tensor) -> torch.Tensor:

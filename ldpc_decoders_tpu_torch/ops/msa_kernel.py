@@ -25,49 +25,19 @@ route's (the two differ in bf16):
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ldpc_decoders_tpu_torch.ops._build import load_library
-from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, exclusive_sign_parity
+from ldpc_decoders_tpu_torch.ops.graph import (
+    BPTables,
+    exclusive_sign_parity,
+    syndrome_ok,
+)
 
 MSA_DEG1_GUARD = 1e30   # replaces the +inf a degree-1 check would emit
 THREADS = 256           # CUDA threads per codeword (one CTA per word)
 MSG_DTYPES = (torch.bfloat16, torch.float32)
-
-
-class MSATables(NamedTuple):
-    """Index tables of one graph for both routes, on the graph's device."""
-    chk_var: torch.Tensor    # [C, Dc] int64 variable of each check slot (pad 0)
-    cmask: torch.Tensor      # [C, Dc] bool
-    var_slot: torch.Tensor   # [V, Dv] int64 flat c*Dc+d of each var slot (pad 0)
-    vmask: torch.Tensor      # [V, Dv] bool
-    k_chk_var: torch.Tensor  # [Dc, C] int32, -1 = pad (kernel, slot-major)
-    k_var_slot: torch.Tensor  # [Dv, V] int32 into slot-major [Dc, C], -1 = pad
-
-
-def msa_tables(graph: TannerGraph) -> MSATables:
-    g = graph
-    C, V, Dc = g.n_chk, g.n_var, g.max_chk_deg
-    cmask = g.chk_mask.cpu().numpy()
-    vmask = g.var_mask.cpu().numpy()
-    edge_var = np.append(g.edge_var.cpu().numpy(), 0)      # sentinel E -> 0
-    chk_var = np.where(cmask, edge_var[g.chk_edge.cpu().numpy()], 0)
-    var_slot = np.where(
-        vmask, g.var_slot_from_chk.cpu().numpy().reshape(V, -1), 0)
-    k_var_slot = np.where(vmask, (var_slot % Dc) * C + var_slot // Dc, -1)
-
-    def dev(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=g.device)
-
-    return MSATables(
-        chk_var=dev(chk_var, torch.int64), cmask=dev(cmask, torch.bool),
-        var_slot=dev(var_slot, torch.int64), vmask=dev(vmask, torch.bool),
-        k_chk_var=dev(np.where(cmask, chk_var, -1).T, torch.int32),
-        k_var_slot=dev(k_var_slot.T, torch.int32))
 
 
 def msa_check_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -84,13 +54,7 @@ def msa_check_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (ext * exclusive_sign_parity(neg)).to(rows.dtype)
 
 
-def _syndrome_ok(x_hat: torch.Tensor, t: MSATables) -> torch.Tensor:
-    """[B, V] bool bits -> [B] bool: every check's XOR is 0."""
-    bits = (x_hat[:, t.chk_var] & t.cmask).to(torch.int32)
-    return (bits.sum(dim=-1) % 2 == 0).all(dim=-1)
-
-
-def msa_decode_plain(llr: torch.Tensor, t: MSATables, *, max_iter: int,
+def msa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                      check_init: bool, msg_dtype: torch.dtype) -> tuple:
     """The plain PyTorch version: llr [B, V] -> (x_hat [B, V] int32,
     iters [B] int32), batched over [B, C, Dc] tensors with done masks."""
@@ -106,7 +70,7 @@ def msa_decode_plain(llr: torch.Tensor, t: MSATables, *, max_iter: int,
     marg = llr.clone()
     c2v = torch.zeros((B, C, Dc), dtype=f32, device=llr.device)
     x_hat = llr < 0
-    done = (_syndrome_ok(x_hat, t) if check_init
+    done = (syndrome_ok(x_hat, t) if check_init
             else torch.zeros(B, dtype=torch.bool, device=llr.device))
     iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
     for _ in range(max_iter):
@@ -124,11 +88,11 @@ def msa_decode_plain(llr: torch.Tensor, t: MSATables, *, max_iter: int,
         c2v = torch.where(active[:, None, None], c2v_new, c2v)
         x_hat = marg < 0
         iters += active.to(torch.int32)
-        done = done | _syndrome_ok(x_hat, t)
+        done = done | syndrome_ok(x_hat, t)
     return x_hat.to(torch.int32), iters
 
 
-def msa_decode_cuda(llr: torch.Tensor, t: MSATables, *, max_iter: int,
+def msa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                     check_init: bool, msg_dtype: torch.dtype) -> tuple:
     """Launch ``csrc/msa_decode.cu`` on the current stream (no sync).
     Counts launches in ``msa_decode_cuda.launches``."""
@@ -181,7 +145,7 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def msa_decode(llr: torch.Tensor, t: MSATables, *, max_iter: int,
+def msa_decode(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                check_init: bool, msg_dtype: torch.dtype) -> tuple:
     """Route by device: CPU -> plain version, CUDA -> kernel (or raise)."""
     kw = dict(max_iter=max_iter, check_init=check_init, msg_dtype=msg_dtype)

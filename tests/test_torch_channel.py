@@ -1,8 +1,10 @@
-"""PyTorch port: the biAWGN channel against the JAX package.
+"""PyTorch port: the biAWGN and BSC channels against the JAX package.
 
-``llr`` and ``send`` (with the same noise injected into both packages)
-must match bit for bit; the port's own generator draw must have the
-channel's mean and variance."""
+biAWGN ``llr`` and ``send`` (with the same noise injected into both
+packages) must match bit for bit; the port's own generator draw must have
+the channel's mean and variance. BSC ``llr`` is within 1 ulp of JAX's
+(``log1p`` and ``log`` of p may differ in the last bit between XLA-CPU and
+torch-CPU); ``send`` must flip bits at rate p."""
 
 import numpy as np
 import pytest
@@ -14,7 +16,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from ldpc_decoders_tpu.channels import biawgn as jax_biawgn  # noqa: E402
-from ldpc_decoders_tpu_torch.channels import biawgn  # noqa: E402
+from ldpc_decoders_tpu.channels import bsc as jax_bsc  # noqa: E402
+from ldpc_decoders_tpu_torch.channels import CHANNELS, biawgn, bsc  # noqa: E402
 
 SNRS = [0.5, 1.5, 2.0, 2.5, 3.0, 4.0]
 
@@ -59,3 +62,46 @@ def test_send_generator_moments():
     y3 = biawgn.send(torch.ones((B, n), dtype=torch.int32), snr,
                      torch.Generator().manual_seed(1)).double()
     assert torch.equal(y, y2) and not torch.equal(y, y3)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.06, 0.05, 0.04, 0.02, 0.001])
+def test_bsc_llr_within_one_ulp(p):
+    y = np.random.default_rng(3).integers(0, 2, size=(64, 1200)).astype(
+        np.int32)
+    want = np.asarray(jax_bsc.llr(jnp.asarray(y), p))
+    got = bsc.llr(torch.from_numpy(y), p).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
+
+
+@pytest.mark.parametrize("p", [0.05, 0.3])
+def test_bsc_send_flip_moments(p):
+    B, n = 512, 1200
+    gen = torch.Generator().manual_seed(0)
+    for x0 in (0, 1):
+        x = torch.full((B, n), x0, dtype=torch.int32)
+        y = bsc.send(x, p, gen)
+        assert y.dtype == torch.int32
+        assert set(torch.unique(y).tolist()) <= {0, 1}
+        rate = float((y != x).double().mean())
+        # Flip rate p within 5 standard errors.
+        assert abs(rate - p) < 5 * np.sqrt(p * (1 - p) / (B * n)), rate
+    y1 = bsc.send(x, p, torch.Generator().manual_seed(1))
+    y2 = bsc.send(x, p, torch.Generator().manual_seed(1))
+    assert torch.equal(y1, y2) and not torch.equal(y1, y)
+
+
+def test_channel_registry():
+    assert set(CHANNELS) == {"biawgn", "bsc"}
+    assert set(bsc.DECODERS) == set(biawgn.DECODERS) == {"SPA", "MSA"}
+    from ldpc_decoders_tpu_torch.codes import get_code
+    code = get_code("7_4_hamming")
+    # The JAX defaults: BSC BP checks the syndrome of the received word,
+    # biAWGN BP does not; SPA runs the reference inf policy.
+    for mod, check_init in ((bsc, True), (biawgn, False)):
+        for name in ("SPA", "MSA"):
+            dec = mod.DECODERS[name](code, device="cpu").dec
+            assert dec.check_init is check_init and dec.variant == name
+            assert dec.inf_policy == ("reference" if name == "SPA"
+                                      else "saturate")

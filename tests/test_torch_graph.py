@@ -21,6 +21,7 @@ from ldpc_decoders_tpu_torch.codes import code as port_code  # noqa: E402
 from ldpc_decoders_tpu_torch.ops.graph import (  # noqa: E402
     TannerGraph,
     exclusive_sign_parity,
+    exclusive_sum,
 )
 
 _CODES_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -77,6 +78,18 @@ def test_exclusive_sign_parity_matches_jax():
     neg = rng.integers(0, 2, size=(64, 600, 6)).astype(np.int32)
     want = np.asarray(jax_graph.exclusive_sign_parity(jnp.asarray(neg)))
     got = exclusive_sign_parity(torch.from_numpy(neg)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("d", [1, 4, 6])
+def test_exclusive_sum_matches_jax(d):
+    """Leave-one-out sums folded in slot order: bit-equal to the JAX
+    package's prefix/suffix cumsums (XLA-CPU folds them in order too) on
+    phi-like values spanning many magnitudes."""
+    rng = np.random.default_rng(d)
+    x = np.exp(rng.uniform(-38, 3.7, size=(64, 600, d))).astype(np.float32)
+    want = np.asarray(jax_graph.exclusive_sum(jnp.asarray(x)))
+    got = exclusive_sum(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, want)
 
 

@@ -78,11 +78,13 @@ def test_cli_cpu_run_matches_artifact(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["bsc", "1200_3_6_ldpc", "MSA"],
-    ["biawgn", "1200_3_6_ldpc", "SPA"],
+    ["bec", "1200_3_6_ldpc", "SPA"],
+    ["bsc", "1200_3_6_ldpc", "ADMM"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--mu", "2.0"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--mesh", "2"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--kernel", "xla"],
+    ["bsc", "1200_3_6_ldpc", "ML"],
+    ["bsc", "1200_3_6_ldpc", "SPA", "--mesh-code", "2"],
 ])
 def test_cli_refuses_unported(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -99,6 +101,14 @@ def test_cli_flags_map_to_config():
     assert args.params == [1.0, 2.0] and args.max_iter == 5 and args.bf16
     assert args.pipeline == 2 and args.fixed_pipeline
     assert args.max_words == 1000 and args.device == "cpu"
+    args = port_main.parse_args(["bsc", "1200_3_6_ldpc", "SPA",
+                                 "--inf-policy", "saturate"])
+    assert args.inf_policy == "saturate" and not args.bf16
+    assert port_main.parse_args(
+        ["bsc", "1200_3_6_ldpc", "SPA"]).inf_policy == "reference"
+    with pytest.raises(SystemExit):
+        port_main.parse_args(["bsc", "1200_3_6_ldpc", "SPA",
+                              "--inf-policy", "clip"])
 
 
 def test_runner_random_codeword_and_caps():
@@ -115,8 +125,15 @@ def test_runner_random_codeword_and_caps():
         MonteCarloRunner(RunConfig(channel="biawgn", code="1200_3_6_ldpc",
                                    decoder="MSA", codeword=-1, device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MonteCarloRunner(RunConfig(channel="bec", code="7_4_hamming",
+                                   decoder="SPA", device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         MonteCarloRunner(RunConfig(channel="bsc", code="7_4_hamming",
-                                   decoder="MSA", device="cpu"))
+                                   decoder="ADMM", device="cpu"))
+    with pytest.raises(ValueError, match="inf_policy"):
+        MonteCarloRunner(RunConfig(channel="bsc", code="7_4_hamming",
+                                   decoder="SPA", inf_policy="clip",
+                                   device="cpu"))
 
 
 def test_saver_file_equals_jax(tmp_path):

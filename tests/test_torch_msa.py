@@ -28,6 +28,7 @@ from ldpc_decoders_tpu.ops.pallas_bp import msa_decode_pallas, slot_tables  # no
 from ldpc_decoders_tpu_torch.codes import get_code  # noqa: E402
 from ldpc_decoders_tpu_torch.decoders import bp  # noqa: E402
 from ldpc_decoders_tpu_torch.ops import msa_kernel  # noqa: E402
+from ldpc_decoders_tpu_torch.ops.graph import bp_tables  # noqa: E402
 
 
 def _awgn_llr(n, B, snr, seed, codeword=0):
@@ -127,8 +128,10 @@ def test_msa_check_init_pre_exit():
 
 def test_decoder_refuses_unported():
     g = get_code("1200_3_6_ldpc").graph
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bp.BPDecoder(g, "SPA")
+    with pytest.raises(ValueError, match="inf_policy"):
+        bp.BPDecoder(g, "SPA", inf_policy="clip")
+    with pytest.raises(ValueError, match="variant"):
+        bp.BPDecoder(g, "ADMM")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bp.BPDecoder(g, "MSA", perm="incidence")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -143,7 +146,7 @@ def test_decoder_refuses_unported():
 def test_kernel_wrapper_never_falls_back():
     """The CUDA wrapper refuses a CPU tensor rather than running the
     plain version, and the router sends CPU tensors to the plain one."""
-    t = msa_kernel.msa_tables(get_code("1200_3_6_ldpc").graph)
+    t = bp_tables(get_code("1200_3_6_ldpc").graph)
     llr = torch.from_numpy(_awgn_llr(1200, 4, 3.0, seed=1))
     kw = dict(max_iter=10, check_init=False, msg_dtype=torch.bfloat16)
     before = msa_kernel.msa_decode_cuda.launches
@@ -161,7 +164,7 @@ def test_kernel_tables_layout():
     """The kernel's slot-major tables index the same edges as the plain
     version's check-layout tables, with -1 on padded slots."""
     g = get_code("1200_rho_x5_rand_ldpc_1").graph
-    t = msa_kernel.msa_tables(g)
+    t = bp_tables(g)
     C, Dc = t.chk_var.shape
     kcv = t.k_chk_var.numpy()
     assert kcv.shape == (Dc, C) and t.k_chk_var.dtype == torch.int32
