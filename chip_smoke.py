@@ -6,8 +6,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device: a CUDA device must be present (there is no CPU fallback); the
    card's name and power limit as nvidia-smi reports them.
-2. Build: both kernel sources (``ldpc_decoders_tpu_torch/csrc``:
-   ``msa_decode.cu``, ``spa_decode.cu``) compile here, in parallel.
+2. Build: the three kernel sources (``ldpc_decoders_tpu_torch/csrc``:
+   ``msa_decode.cu``, ``spa_decode.cu``, ``bec_decode.cu``) compile here,
+   in parallel.
 3. Kernels against their plain PyTorch versions on the card, B=4096.
    Tolerance: none — decisions and iteration counts must be bit-equal.
    - min-sum (``msa_decode_plain``), bf16 and f32: LDPC(1200,3,6) biAWGN
@@ -17,7 +18,16 @@ Phases (any failure exits non-zero and prints no result line):
    - SPA (``spa_decode_plain``), both inf policies, bf16 and f32:
      LDPC(1200,3,6) biAWGN at 1.5 and 3.0 dB, LDPC(1200,3,6) BSC p=0.05,
      1200_rho_x5_rand_ldpc_3 BSC p=0.05 with 100 iterations, margulis
-     biAWGN 2.25 dB.
+     biAWGN 2.25 dB;
+   - erasure SPA (``bec_spa_decode_plain``): LDPC(1200,3,6) at p = 0.45,
+     0.375 and 0.3 with caps 10 and 100 and in converge mode (bound
+     2000), 1200_rho_x5_rand_ldpc_3 (padded slots) at p=0.4 cap 100,
+     margulis at p=0.375;
+   - ``caps=`` snapshot planes, caps (1,2,3,6,10,40,100): each kernel
+     against its plain ``caps=`` version AND each plane against the
+     single-cap kernel at that cap: MSA bf16 biAWGN 2.0 dB and f32 BSC
+     0.05; SPA under both policies bf16 biAWGN 2.0 dB and f32 BSC 0.07;
+     erasure SPA p=0.4.
 4. The main paths through the CLI (``main.main``, codeword as stated,
    batch 16384). Each run's kernel launch count is set to 0 just before
    it and must have risen just after; each Saver file must have the JAX
@@ -28,13 +38,35 @@ Phases (any failure exits non-zero and prints no result line):
    - BSC LDPC(1200,3,6) SPA f32 at p=0.06 (reference policy);
    - BSC 1200_rho_x5_rand_ldpc_3 SPA f32, 100 iterations, p=0.05, under
      the reference policy (the inf/NaN cascade) and under ``saturate``,
-     whose WER must be at least 5x the reference policy's.
+     whose WER must be at least 5x the reference policy's;
+   - BEC LDPC(1200,3,6) SPA at p=0.375 and 0.35, and with 100 iterations
+     at p=0.4;
+   - the iteration-cap sweep (``CapSweepRunner``, REG_BAD's labels
+     0,1,2,3,6,10,40,100, one Saver file per label, each z-checked against
+     its golden): BEC SPA at p=0.4 and 0.375, biAWGN MSA bf16 codeword 1
+     at 2.0 dB, BSC SPA f32 at p=0.07; label 0 on biAWGN must give
+     WER = BER = 1. A BSC SPA sweep under ``saturate`` drives that
+     policy's ``caps=`` kernel (no golden: error counts must not rise
+     with the cap). ``campaign REG_BAD --emit`` must print 40 lines.
 5. Timing at B=16384: the decode alone (CUDA events) and the whole step
    (sample -> LLR -> decode -> tally, host clock after a synchronize),
    through each kernel and through its plain version, in the order plain,
    kernel, kernel, plain: MSA bf16 biAWGN 3.0 dB; SPA reference and
-   saturate bf16 biAWGN 2.5 dB; SPA reference f32 BSC p=0.05. Each kernel
-   is also held bit-equal to its plain version at this shape.
+   saturate bf16 biAWGN 2.5 dB; SPA reference f32 BSC p=0.05; erasure SPA
+   p=0.375 cap 10. The ``caps=`` kernels (K=7, caps up to 100; decode
+   only) beside the single-cap kernel at cap 100: MSA and SPA (both
+   policies) bf16 biAWGN 2.0 dB, erasure SPA p=0.4. Each kernel is also
+   held bit-equal to its plain version at this shape.
+
+The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
+bytes it must move (input read once, K output planes and the iteration
+counts written once) over 3.35 TB/s, and its operations over 67 TFLOP/s
+(the float32 rate outside the tensor cores; the erasure kernel's integer
+operations are held to the same rate). Operations are counted for this
+run's data: the sum of the words' iteration counts times the edges of the
+graph times ``OPS_PER_EDGE_ITER`` arithmetic operations of the algorithm
+per edge and iteration (a transcendental counts as one). No single
+PyTorch call computes a whole BP decode, so ``library_ms`` is null.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,7 +75,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import glob
+import io
 import json
 import math
 import os
@@ -60,6 +94,14 @@ B_CHECK = 4096
 B_STEP = 16384
 FLAG = "1200_3_6_ldpc"
 IREG = "1200_rho_x5_rand_ldpc_3"
+CAPS = (1, 2, 3, 6, 10, 40, 100)
+CAP_LABELS = [0, 1, 2, 3, 6, 10, 40, 100]
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Arithmetic operations of each algorithm per edge and iteration (check
+# pass + variable pass; a transcendental counts as one operation).
+OPS_PER_EDGE_ITER = {"msa_decode": 12, "spa_decode": 20,
+                     "spa_ref_decode": 30, "bec_decode": 6}
 
 
 def fail(msg: str) -> None:
@@ -93,10 +135,17 @@ def main() -> None:
              "CUDA device and has no CPU fallback")
     sys.path.insert(0, ROOT)
     try:
+        from ldpc_decoders_tpu_torch import campaign
         from ldpc_decoders_tpu_torch import main as cli
         from ldpc_decoders_tpu_torch.channels import CHANNELS
         from ldpc_decoders_tpu_torch.codes import get_code
-        from ldpc_decoders_tpu_torch.ops import _build, msa_kernel, spa_kernel
+        from ldpc_decoders_tpu_torch.harness import CapSweepRunner, RunConfig
+        from ldpc_decoders_tpu_torch.ops import (
+            _build,
+            bec_kernel,
+            msa_kernel,
+            spa_kernel,
+        )
         from ldpc_decoders_tpu_torch.ops.graph import bp_tables
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
@@ -110,9 +159,9 @@ def main() -> None:
     print(f"device: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # -- 2. build both kernels at once ---------------------------------------
+    # -- 2. build all kernels at once ----------------------------------------
     t0 = time.time()
-    sources = ("msa_decode", "spa_decode")
+    sources = ("msa_decode", "spa_decode", "bec_decode")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(_build.load_library, s) for s in sources]:
             try:
@@ -134,14 +183,18 @@ def main() -> None:
             tables[code_name] = (code, bp_tables(code.graph.to("cuda")))
         return tables[code_name]
 
+    def soft(channel, y, param):
+        """What the channel's BP decoder takes: the symbols on the BEC,
+        the LLRs elsewhere."""
+        return y if channel == "bec" else CHANNELS[channel].llr(y, param)
+
     def seeded_llr(code_name, channel, param, batch, seed, codeword=0):
         code, _ = tab(code_name)
-        mod = CHANNELS[channel]
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed)
         x = torch.full((batch, code.get_n()), codeword, dtype=torch.int32,
                        device="cuda")
-        return mod.llr(mod.send(x, param, gen), param)
+        return soft(channel, CHANNELS[channel].send(x, param, gen), param)
 
     # -- 3. kernels == plain, bit for bit ------------------------------------
     # kernel name -> (its wrapper, its plain version)
@@ -150,8 +203,12 @@ def main() -> None:
               "spa_decode": (spa_kernel.spa_decode_cuda,
                              spa_kernel.spa_decode_plain),
               "spa_ref_decode": (spa_kernel.spa_decode_cuda,
-                                 spa_kernel.spa_decode_plain)}
-    max_err = dict.fromkeys(routes, 0)
+                                 spa_kernel.spa_decode_plain),
+              "bec_decode": (bec_kernel.bec_spa_decode_cuda,
+                             bec_kernel.bec_spa_decode_plain)}
+    # Every kernel has a single-cap entry and a ``caps=`` entry.
+    knames = [k + sfx for k in routes for sfx in ("", "_caps")]
+    max_err = dict.fromkeys(knames, 0)
 
     def check(kname, code_name, channel, param, kw):
         _, t = tab(code_name)
@@ -181,6 +238,33 @@ def main() -> None:
         for dt in msa_kernel.MSG_DTYPES:
             check("msa_decode", code_name, channel, param,
                   dict(max_iter=10, check_init=check_init, msg_dtype=dt))
+
+    def check_planes(kname, code_name, channel, param, kw):
+        """caps= kernel == plain caps= version, and every plane == the
+        single-cap kernel at that cap."""
+        _, t = tab(code_name)
+        cuda_fn, plain_fn = routes[kname]
+        inp = seeded_llr(code_name, channel, param, B_CHECK,
+                         seed=int(param * 1000) + 77)
+        xs, its = cuda_fn(inp, t, max_iter=CAPS[-1], caps=CAPS, **kw)
+        xp, ip = plain_fn(inp, t, max_iter=CAPS[-1], caps=CAPS, **kw)
+        torch.cuda.synchronize()
+        err = max(int((xs - xp).abs().max()), int((its - ip).abs().max()))
+        for k, cap in enumerate(CAPS):
+            x1, i1 = cuda_fn(inp, t, max_iter=cap, **kw)
+            err = max(err, int((xs[k] - x1).abs().max()),
+                      int((its.clamp(max=cap) - i1).abs().max()))
+        desc = " ".join(f"{k}={v}" for k, v in kw.items())
+        wers = [round(float(x.any(dim=1).float().mean()), 5) for x in xs]
+        print(f"check {kname}_caps {code_name} {channel} {param} {desc}: "
+              f"B={B_CHECK} K={len(CAPS)} max_abs_err={err} "
+              f"mean_iters={float(its.float().mean()):.3f} wer_by_cap={wers}",
+              flush=True)
+        if err:
+            fail(f"{kname} caps= kernel != plain or != the single-cap "
+                 f"kernel on {code_name} {channel} {param} ({desc})")
+        max_err[kname + "_caps"] = max(max_err[kname + "_caps"], err)
+
     spa_cases = [(FLAG, "biawgn", 1.5, False, 10),
                  (FLAG, "biawgn", 3.0, False, 10),
                  (FLAG, "bsc", 0.05, True, 10),
@@ -193,20 +277,54 @@ def main() -> None:
                 check(kname, code_name, channel, param,
                       dict(max_iter=max_iter, check_init=check_init,
                            msg_dtype=dt, inf_policy=policy))
+    for p_erase in (0.45, 0.375, 0.3):
+        for max_iter in (10, 100, 2000):
+            check("bec_decode", FLAG, "bec", p_erase, dict(max_iter=max_iter))
+    check("bec_decode", IREG, "bec", 0.4, dict(max_iter=100))
+    check("bec_decode", "margulis", "bec", 0.375, dict(max_iter=10))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for channel, param, check_init, dt in (("biawgn", 2.0, False, bf16),
+                                           ("bsc", 0.05, True, f32)):
+        check_planes("msa_decode", FLAG, channel, param,
+                     dict(check_init=check_init, msg_dtype=dt))
+    for channel, param, check_init, dt in (("biawgn", 2.0, False, bf16),
+                                           ("bsc", 0.07, True, f32)):
+        for policy in spa_kernel.INF_POLICIES:
+            kname = "spa_ref_decode" if policy == "reference" else "spa_decode"
+            check_planes(kname, FLAG, channel, param,
+                         dict(check_init=check_init, msg_dtype=dt,
+                              inf_policy=policy))
+    check_planes("bec_decode", FLAG, "bec", 0.4, {})
 
     # -- 4. the main paths through the CLI ------------------------------------
+    def attr_counter(fn, attr):
+        return (lambda: getattr(fn, attr), lambda: setattr(fn, attr, 0))
+
+    def dict_counter(fn, attr, key):
+        return (lambda: getattr(fn, attr)[key],
+                lambda: getattr(fn, attr).update({key: 0}))
+
+    # kernel name -> (read its launch count, set it to 0)
+    msa_fn, spa_fn = msa_kernel.msa_decode_cuda, spa_kernel.spa_decode_cuda
+    bec_fn = bec_kernel.bec_spa_decode_cuda
     counters = {
-        "msa_decode": (lambda: msa_kernel.msa_decode_cuda.launches,
-                       lambda: setattr(msa_kernel.msa_decode_cuda,
-                                       "launches", 0)),
-        "spa_decode": (lambda: spa_kernel.spa_decode_cuda.launches["saturate"],
-                       lambda: spa_kernel.spa_decode_cuda.launches.update(
-                           saturate=0)),
-        "spa_ref_decode": (
-            lambda: spa_kernel.spa_decode_cuda.launches["reference"],
-            lambda: spa_kernel.spa_decode_cuda.launches.update(reference=0)),
+        "msa_decode": attr_counter(msa_fn, "launches"),
+        "msa_decode_caps": attr_counter(msa_fn, "launches_caps"),
+        "spa_decode": dict_counter(spa_fn, "launches", "saturate"),
+        "spa_decode_caps": dict_counter(spa_fn, "launches_caps", "saturate"),
+        "spa_ref_decode": dict_counter(spa_fn, "launches", "reference"),
+        "spa_ref_decode_caps": dict_counter(spa_fn, "launches_caps",
+                                            "reference"),
+        "bec_decode": attr_counter(bec_fn, "launches"),
+        "bec_decode_caps": attr_counter(bec_fn, "launches_caps"),
     }
     launches = dict.fromkeys(counters, 0)
+
+    def z_score(saved, ref, key):
+        w_o, t_o = saved["wer"][key], saved["tot"][key]
+        w_r, t_r = ref["wer"][key], ref["tot"][key]
+        return (w_o - w_r) / math.sqrt(ac_var(w_o, t_o) + ac_var(w_r, t_r))
 
     def cli_run(kname, argv, artifact, param):
         """One CLI run through kernel ``kname``; returns its WER."""
@@ -233,7 +351,7 @@ def main() -> None:
         key = str(param)
         w_o, t_o = saved["wer"][key], saved["tot"][key]
         w_r, t_r = ref["wer"][key], ref["tot"][key]
-        z = (w_o - w_r) / math.sqrt(ac_var(w_o, t_o) + ac_var(w_r, t_r))
+        z = z_score(saved, ref, key)
         print(f"cli {' '.join(argv)}: {secs:.3f} s, {kname} launches={n}, "
               f"result={res[param]}", flush=True)
         print(f"cli WER at {key}: {w_o:.6f} ({saved['wec'][key]}/{t_o}) vs "
@@ -274,25 +392,122 @@ def main() -> None:
         fail("the saturate policy's WER is not >= 5x the reference "
              "policy's on the cascade input")
 
+    bec_art = "bec-1200_3_6_ldpc-SPA-0-100-%d.json"
+    for argv, art, p_erase in (
+            (["--params", "0.375"], bec_art % 10, 0.375),
+            (["--params", "0.35"], bec_art % 10, 0.35),
+            (["--params", "0.4", "--max-iter", "100"], bec_art % 100, 0.4)):
+        _, z = cli_run("bec_decode",
+                       ["bec", FLAG, "SPA", "--codeword", "0", "--min-wec",
+                        "200"] + argv, art, p_erase)
+        if not abs(z) <= 4.0:
+            fail(f"BEC SPA CLI WER at {p_erase} is |z|={abs(z):.2f} > 4 "
+                 "from the artifact")
+
+    def cap_sweep(kname, golden, **cfg_kw):
+        """One CapSweepRunner leg over REG_BAD's labels through the caps=
+        kernel ``kname``; each label's Saver file is z-checked against its
+        golden where ``golden`` is set. Returns {label: {param: stats}}."""
+        read, reset = counters[kname]
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = RunConfig(min_wec=100, batch=B_STEP, data_dir=tmp,
+                            device="cuda", log_freq=1e9, **cfg_kw)
+            reset()
+            t0 = time.time()
+            res = CapSweepRunner(cfg, CAP_LABELS).run()
+            n = read()
+            secs = time.time() - t0
+            if n < 1:
+                fail(f"the cap sweep {cfg_kw} did not launch {kname}")
+            launches[kname] += n
+            stem = (f"{cfg.channel}-{cfg.code}-{cfg.decoder}-{cfg.codeword}-"
+                    f"{cfg.min_wec}-")
+            if sorted(os.listdir(tmp)) != sorted(
+                    f"{stem}{lbl}.json" for lbl in CAP_LABELS):
+                fail(f"cap sweep {cfg_kw} wrote {sorted(os.listdir(tmp))}")
+            print(f"cap sweep {cfg_kw}: {secs:.3f} s, {kname} launches={n}",
+                  flush=True)
+            for lbl in CAP_LABELS:
+                with open(os.path.join(tmp, f"{stem}{lbl}.json")) as fp:
+                    saved = json.load(fp)
+                if list(saved.keys()) != SAVER_KEYS or \
+                        saved["max_iter"] != lbl:
+                    fail(f"cap sweep Saver file of label {lbl}: "
+                         f"{list(saved.keys())}, max_iter "
+                         f"{saved['max_iter']}")
+                for param in cfg.params:
+                    key = str(param)
+                    line = (f"  label {lbl} at {key}: WER "
+                            f"{saved['wer'][key]:.6f} "
+                            f"({saved['wec'][key]}/{saved['tot'][key]})")
+                    if golden:
+                        with open(os.path.join(ARTIFACTS,
+                                               f"{stem}{lbl}.json")) as fp:
+                            ref = json.load(fp)
+                        z = z_score(saved, ref, key)
+                        line += (f" vs golden {ref['wer'][key]:.6f} "
+                                 f"({ref['wec'][key]}/{ref['tot'][key]}): "
+                                 f"z={z:.3f}")
+                        if not abs(z) <= 4.0:
+                            fail(f"cap sweep {cfg_kw} label {lbl} at {key} "
+                                 f"is |z|={abs(z):.2f} > 4 from its golden")
+                    print(line, flush=True)
+        for param in cfg.params:
+            wecs = [res[lbl][param]["wec"] for lbl in CAP_LABELS]
+            if wecs != sorted(wecs, reverse=True):
+                fail(f"cap sweep {cfg_kw}: word errors rise with the cap "
+                     f"at {param}: {wecs}")
+        return res
+
+    cap_sweep("bec_decode_caps", True, channel="bec", code=FLAG,
+              decoder="SPA", params=[0.4, 0.375], codeword=0)
+    res = cap_sweep("msa_decode_caps", True, channel="biawgn", code=FLAG,
+                    decoder="MSA", params=[2.0], codeword=1,
+                    msg_dtype="bfloat16")
+    raw = res[0][2.0]
+    if raw["wer"] != 1.0 or raw["ber"] != 1.0:
+        fail(f"biAWGN cap label 0 must score WER = BER = 1, got {raw}")
+    cap_sweep("spa_ref_decode_caps", True, channel="bsc", code=FLAG,
+              decoder="SPA", params=[0.07], codeword=0)
+    cap_sweep("spa_decode_caps", False, channel="bsc", code=FLAG,
+              decoder="SPA", params=[0.07], codeword=0,
+              inf_policy="saturate")
+    emitted = io.StringIO()
+    with contextlib.redirect_stdout(emitted):
+        campaign.main(["REG_BAD", "--emit"])
+    n_lines = len(emitted.getvalue().splitlines())
+    print(f"campaign REG_BAD --emit: {n_lines} lines", flush=True)
+    if n_lines != 40:
+        fail(f"campaign REG_BAD --emit printed {n_lines} lines, not 40")
+
     # -- 5. timing ------------------------------------------------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
-    def time_case(kname, label, code_name, channel, param, kw, codeword):
+    def time_case(kname, label, code_name, channel, param, kw, codeword,
+                  caps=None):
+        """Times kernel ``kname`` and its plain version at B=16384 and
+        works out the kernel's bound from this input. With ``caps`` the
+        ``caps=`` form is timed (decode only), beside the single-cap
+        kernel at ``caps[-1]``. Returns the kernel's ``kernels``-line
+        numbers."""
         code, t = tab(code_name)
         mod = CHANNELS[channel]
         cuda_fn, plain_fn = routes[kname]
+        if caps:
+            kw = dict(kw, max_iter=caps[-1])
+            single_kw, kw = kw, dict(kw, caps=caps)
         route_fn = {"kernel": cuda_fn, "plain": plain_fn}
 
         def step(decode):
             x = torch.full((B_STEP, code.get_n()), codeword,
                            dtype=torch.int32, device="cuda")
-            x_hat, _ = decode(mod.llr(mod.send(x, param, gen), param), t,
-                              **kw)
+            x_hat, _ = decode(soft(channel, mod.send(x, param, gen), param),
+                              t, **kw)
             errs = (x_hat != x).sum(dim=-1)
             return torch.stack([(errs > 0).sum(), errs.sum()])
 
-        def time_decode(decode, llr, reps):
+        def time_decode(decode, llr, reps, kw=kw):
             decode(llr, t, **kw)
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
@@ -325,36 +540,77 @@ def main() -> None:
               flush=True)
         if err:
             fail(f"{kname} kernel != plain at B={B_STEP} ({label})")
-        reps = {"kernel": 20, "plain": 3}
-        ms = {"kernel": [], "plain": []}
+        # The bound of this run's work: bytes in and out once, and the
+        # operations of the iterations these words needed.
+        planes = len(caps) if caps else 1
+        n_bytes = B_STEP * (4 * code.get_n() * (1 + planes) + 4)
+        n_ops = (int(ik.sum()) * code.graph.n_edge
+                 * OPS_PER_EDGE_ITER[kname])
+        bound = {"bytes": 1e3 * n_bytes / HBM_BYTES_PER_S,
+                 "operations": 1e3 * n_ops / F32_OPS_PER_S}
+        bound_by = max(bound, key=bound.get)
+        reps = {"kernel": 10 if caps else 20, "plain": 1 if caps else 3}
+        ms = {"kernel": [], "plain": [], "single": []}
         cws = {"kernel": [], "plain": []}
         for route in ("plain", "kernel", "kernel", "plain"):
             ms[route].append(time_decode(route_fn[route], llr, reps[route]))
-            rate, wer = time_step(route_fn[route], reps[route])
-            cws[route].append(rate)
-            print(f"timing {label} {route}: decode {ms[route][-1]:.4f} ms at "
-                  f"B={B_STEP}; whole step {rate:.1f} cw/s (wer {wer:.5f}) | "
-                  f"{card}", flush=True)
-        best = {r: min(v) for r, v in ms.items()}
-        print(f"timing {label}: step cw/s kernel {max(cws['kernel']):.1f} vs "
-              f"plain {max(cws['plain']):.1f}; decode ms kernel "
-              f"{best['kernel']:.4f} vs plain {best['plain']:.4f} | {card}",
-              flush=True)
-        return best
+            line = (f"timing {label} {route}: decode {ms[route][-1]:.4f} ms "
+                    f"at B={B_STEP}")
+            if caps:
+                if route == "kernel":
+                    ms["single"].append(time_decode(cuda_fn, llr,
+                                                    reps[route], single_kw))
+                    line += (f"; single-cap kernel at cap {caps[-1]} "
+                             f"{ms['single'][-1]:.4f} ms")
+            else:
+                rate, wer = time_step(route_fn[route], reps[route])
+                cws[route].append(rate)
+                line += f"; whole step {rate:.1f} cw/s (wer {wer:.5f})"
+            print(f"{line} | {card}", flush=True)
+        best = {r: min(v) for r, v in ms.items() if v}
+        line = (f"timing {label}: decode ms kernel {best['kernel']:.4f} vs "
+                f"plain {best['plain']:.4f}")
+        if caps:
+            line += f" vs single-cap kernel {best['single']:.4f}"
+        else:
+            line += (f"; step cw/s kernel {max(cws['kernel']):.1f} vs plain "
+                     f"{max(cws['plain']):.1f}")
+        print(f"{line}; mean iterations {float(ik.float().mean()):.3f}; "
+              f"bound {bound[bound_by]:.4f} ms by {bound_by} (bytes "
+              f"{bound['bytes']:.4f} ms, operations "
+              f"{bound['operations']:.4f} ms) | {card}", flush=True)
+        return {"ms": best["kernel"], "plain_ms": best["plain"],
+                "bound_ms": bound[bound_by], "bound_by": bound_by,
+                "library_ms": None}
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    ms = {
+    msa_kw = dict(check_init=False, msg_dtype=bf16)
+    ref_kw = dict(check_init=False, msg_dtype=bf16, inf_policy="reference")
+    sat_kw = dict(check_init=False, msg_dtype=bf16, inf_policy="saturate")
+    timed = {
         "msa_decode": time_case(
             "msa_decode", "msa bf16 biawgn 3.0 dB", FLAG, "biawgn", 3.0,
-            dict(max_iter=10, check_init=False, msg_dtype=bf16), 1),
+            dict(msa_kw, max_iter=10), 1),
         "spa_ref_decode": time_case(
             "spa_ref_decode", "spa reference bf16 biawgn 2.5 dB", FLAG,
-            "biawgn", 2.5, dict(max_iter=10, check_init=False,
-                                msg_dtype=bf16, inf_policy="reference"), 0),
+            "biawgn", 2.5, dict(ref_kw, max_iter=10), 0),
         "spa_decode": time_case(
             "spa_decode", "spa saturate bf16 biawgn 2.5 dB", FLAG, "biawgn",
-            2.5, dict(max_iter=10, check_init=False, msg_dtype=bf16,
-                      inf_policy="saturate"), 0),
+            2.5, dict(sat_kw, max_iter=10), 0),
+        "bec_decode": time_case(
+            "bec_decode", "erasure spa bec 0.375 cap 10", FLAG, "bec", 0.375,
+            dict(max_iter=10), 0),
+        "msa_decode_caps": time_case(
+            "msa_decode", "msa caps K=7 bf16 biawgn 2.0 dB", FLAG, "biawgn",
+            2.0, msa_kw, 1, caps=CAPS),
+        "spa_ref_decode_caps": time_case(
+            "spa_ref_decode", "spa reference caps K=7 bf16 biawgn 2.0 dB",
+            FLAG, "biawgn", 2.0, ref_kw, 0, caps=CAPS),
+        "spa_decode_caps": time_case(
+            "spa_decode", "spa saturate caps K=7 bf16 biawgn 2.0 dB", FLAG,
+            "biawgn", 2.0, sat_kw, 0, caps=CAPS),
+        "bec_decode_caps": time_case(
+            "bec_decode", "erasure spa caps K=7 bec 0.4", FLAG, "bec", 0.4,
+            {}, 0, caps=CAPS),
     }
     time_case("spa_ref_decode", "spa reference f32 bsc 0.05", FLAG, "bsc",
               0.05, dict(max_iter=10, check_init=True, msg_dtype=f32,
@@ -364,17 +620,17 @@ def main() -> None:
     pallas = "ldpc_decoders_tpu/ops/pallas_bp.py:"
     sources = {"msa_decode": ("msa_decode.cu", "339"),
                "spa_decode": ("spa_decode.cu", "710"),
-               "spa_ref_decode": ("spa_decode.cu", "838")}
-    print(json.dumps({"kernels": [{
-        "name": k,
-        "route": "cuda",
-        "source": csrc + src,
-        "replaces": pallas + line,
-        "launches": launches[k],
-        "max_abs_err": max_err[k],
-        "ms": ms[k]["kernel"],
-        "plain_ms": ms[k]["plain"],
-    } for k, (src, line) in sources.items()]}))
+               "spa_ref_decode": ("spa_decode.cu", "838"),
+               "bec_decode": ("bec_decode.cu", "565")}
+    lines = []
+    for k in knames:
+        if launches[k] < 1:
+            fail(f"no main path launched {k}")
+        src, line = sources[k.removesuffix("_caps")]
+        lines.append({"name": k, "route": "cuda", "source": csrc + src,
+                      "replaces": pallas + line, "launches": launches[k],
+                      "max_abs_err": max_err[k], **timed[k]})
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -1,11 +1,10 @@
 """Channel models. Each module exposes ``send(x, param, generator)``,
 ``llr(y, param)`` and a ``DECODERS`` registry (name -> factory(code,
-device=..., **kw)). biAWGN and BSC are ported; BEC waits for ROADMAP
-A.6."""
+device=..., **kw)) of the decoders ported so far."""
 
-from ldpc_decoders_tpu_torch.channels import biawgn, bsc
+from ldpc_decoders_tpu_torch.channels import bec, biawgn, bsc
 
-CHANNELS = {"biawgn": biawgn, "bsc": bsc}
+CHANNELS = {"bec": bec, "biawgn": biawgn, "bsc": bsc}
 
 # The JAX package's decoder names (the CLI accepts them and names the
 # ROADMAP item of each one not ported yet).

@@ -19,6 +19,12 @@
 // With one CTA per word, "frozen" is "the CTA leaves its loop": that is
 // result-identical to the Pallas block loop (_bounded_loop), whose body is
 // a no-op for finished words. No batch padding is needed.
+// Snapshot planes (the TPU kernel's caps=, _snap_write / _snap_fill): x_out
+// is [K][B][V]; plane k holds the decisions after caps[k] iterations, or
+// the final ones where the word finished earlier. A single-cap decode is
+// K = 1 with caps = {max_iter}. A snapshot is a pass of its own after the
+// variable pass (the hot loop stays free of it); a thread reads back
+// exactly the marginals it has just written, so it needs no barrier.
 //
 // Design. The TPU kernel moves messages with one-hot MXU matmuls because
 // the TPU has no fast gather. Here each CTA keeps its word's whole state in
@@ -48,6 +54,12 @@
 namespace {
 
 constexpr float kDeg1Guard = 1e30f;  // only a degree-1 check keeps it
+constexpr int kMaxCaps = 16;
+
+struct Caps {
+  int n;
+  int at[kMaxCaps];  // ascending, at[n-1] == max_iter
+};
 
 template <typename T>
 struct Msg;
@@ -72,22 +84,24 @@ struct Msg<__nv_bfloat16> {
 
 // llr [B, V] f32; chk_var [Dc][C]: variable of check slot (c, d), -1 if
 // padded; var_slot [Dv][V]: index d*C + c of variable slot (v, s) in the
-// slot-major c2v, -1 if padded. Outputs x_out [B, V] int32, it_out [B].
+// slot-major c2v, -1 if padded. Outputs x_out [K][B][V] int32, it_out [B].
 template <typename MsgT>
 __global__ void msa_decode_kernel(const float* __restrict__ llr,
                                   const int* __restrict__ chk_var,
                                   const int* __restrict__ var_slot,
                                   int* __restrict__ x_out,
-                                  int* __restrict__ it_out, int C, int V,
-                                  int Dc, int Dv, int max_iter,
-                                  int check_init) {
+                                  int* __restrict__ it_out, int B, int C,
+                                  int V, int Dc, int Dv, int max_iter,
+                                  int check_init, Caps caps) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_llr = reinterpret_cast<float*>(smem);
   float* s_marg = s_llr + V;
   MsgT* s_c2v = reinterpret_cast<MsgT*>(s_marg + V);
 
   const int b = blockIdx.x;
+  const size_t plane = static_cast<size_t>(B) * V;
   const float* llr_b = llr + static_cast<size_t>(b) * V;
+  int* x_b = x_out + static_cast<size_t>(b) * V;
   for (int v = threadIdx.x; v < V; v += blockDim.x) {
     const float l = llr_b[v];
     s_llr[v] = l;
@@ -99,6 +113,7 @@ __global__ void msa_decode_kernel(const float* __restrict__ llr,
   __syncthreads();
 
   int it = 0;
+  int kn = 0;  // next snapshot plane to write
   while (it < max_iter) {
     // Check pass: syndrome of x_hat = (marg < 0), and the new c2v.
     int unsat = 0;
@@ -144,12 +159,22 @@ __global__ void msa_decode_kernel(const float* __restrict__ llr,
       s_marg[v] = s_llr[v] + acc;
     }
     ++it;
+    if (it == caps.at[kn]) {
+      int* x_k = x_b + kn * plane;
+      for (int v = threadIdx.x; v < V; v += blockDim.x) {
+        x_k[v] = s_marg[v] < 0.f ? 1 : 0;
+      }
+      ++kn;
+    }
     __syncthreads();
   }
 
-  int* x_b = x_out + static_cast<size_t>(b) * V;
-  for (int v = threadIdx.x; v < V; v += blockDim.x) {
-    x_b[v] = s_marg[v] < 0.f ? 1 : 0;
+  // Planes the loop never reached hold the final decisions.
+  for (int k = kn; k < caps.n; ++k) {
+    int* x_k = x_b + k * plane;
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      x_k[v] = s_marg[v] < 0.f ? 1 : 0;
+    }
   }
   if (threadIdx.x == 0) it_out[b] = it;
 }
@@ -157,8 +182,8 @@ __global__ void msa_decode_kernel(const float* __restrict__ llr,
 template <typename MsgT>
 cudaError_t launch(const float* llr, const int* chk_var, const int* var_slot,
                    int* x_out, int* it_out, int B, int C, int V, int Dc,
-                   int Dv, int max_iter, int check_init, int threads,
-                   cudaStream_t stream) {
+                   int Dv, int max_iter, int check_init, const Caps& caps,
+                   int threads, cudaStream_t stream) {
   const size_t smem = 2 * static_cast<size_t>(V) * sizeof(float) +
                       static_cast<size_t>(Dc) * C * sizeof(MsgT);
   if (smem > 48 * 1024) {
@@ -168,8 +193,8 @@ cudaError_t launch(const float* llr, const int* chk_var, const int* var_slot,
     if (e != cudaSuccess) return e;
   }
   msa_decode_kernel<MsgT><<<B, threads, smem, stream>>>(
-      llr, chk_var, var_slot, x_out, it_out, C, V, Dc, Dv, max_iter,
-      check_init);
+      llr, chk_var, var_slot, x_out, it_out, B, C, V, Dc, Dv, max_iter,
+      check_init, caps);
   return cudaGetLastError();
 }
 
@@ -179,8 +204,15 @@ extern "C" int msa_decode_launch(const void* llr, const void* chk_var,
                                  const void* var_slot, void* x_out,
                                  void* it_out, int B, int C, int V, int Dc,
                                  int Dv, int max_iter, int check_init,
-                                 int bf16, int threads, void* stream) {
+                                 int bf16, const int* caps, int n_caps,
+                                 int threads, void* stream) {
   if (B == 0) return static_cast<int>(cudaSuccess);
+  if (n_caps < 1 || n_caps > kMaxCaps || caps[n_caps - 1] != max_iter) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Caps cp;
+  cp.n = n_caps;
+  for (int k = 0; k < kMaxCaps; ++k) cp.at[k] = k < n_caps ? caps[k] : -1;
   const auto* l = static_cast<const float*>(llr);
   const auto* cv = static_cast<const int*>(chk_var);
   const auto* vs = static_cast<const int*>(var_slot);
@@ -189,9 +221,9 @@ extern "C" int msa_decode_launch(const void* llr, const void* chk_var,
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       bf16 ? launch<__nv_bfloat16>(l, cv, vs, x, it, B, C, V, Dc, Dv,
-                                   max_iter, check_init, threads, s)
+                                   max_iter, check_init, cp, threads, s)
            : launch<float>(l, cv, vs, x, it, B, C, V, Dc, Dv, max_iter,
-                           check_init, threads, s);
+                           check_init, cp, threads, s);
   return static_cast<int>(e);
 }
 

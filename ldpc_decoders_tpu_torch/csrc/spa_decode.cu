@@ -34,7 +34,15 @@
 //     the same class either way);
 //   - the syndrome of x_hat is tested after every iteration (check_init
 //     adds a test before the first); a word whose syndrome passes is
-//     frozen: its CTA leaves the loop, and `iters` counts its iterations.
+//     frozen: its CTA leaves the loop, and `iters` counts its iterations;
+//   - snapshot planes (the TPU kernels' caps=, _snap_write / _snap_fill):
+//     x_out is [K][B][V]; plane k holds the decisions after caps[k]
+//     iterations, or the final ones where the word finished earlier, by
+//     the same rule as the final output (marg < 0 on the encoded marginal,
+//     so a NaN marginal decides bit 0 in a snapshot too). A single-cap
+//     decode is K = 1 with caps = {max_iter}. A snapshot is a pass of its
+//     own after the variable pass; a thread reads back exactly the
+//     marginals it has just written: no extra barrier.
 //
 // Bit-equality with the plain PyTorch version (ops/spa_kernel.py) on the
 // card: phi uses expf, log1pf and logf from the CUDA math library, IEEE
@@ -73,6 +81,12 @@ constexpr float kNanMin = 1.5e9f;
 // Widest check row a thread keeps in registers (the codes of the
 // repository have check degree <= 6).
 constexpr int kMaxD = 8;
+constexpr int kMaxCaps = 16;
+
+struct Caps {
+  int n;
+  int at[kMaxCaps];  // ascending, at[n-1] == max_iter
+};
 
 template <typename T>
 struct Msg;
@@ -123,22 +137,24 @@ __device__ __forceinline__ float rebuild_v2c(float marg, float c2v) {
 
 // llr [B, V] f32; chk_var [Dc][C]: variable of check slot (c, d), -1 if
 // padded; var_slot [Dv][V]: index d*C + c of variable slot (v, s) in the
-// slot-major c2v, -1 if padded. Outputs x_out [B, V] int32, it_out [B].
+// slot-major c2v, -1 if padded. Outputs x_out [K][B][V] int32, it_out [B].
 template <typename MsgT, bool kRef>
 __global__ void spa_decode_kernel(const float* __restrict__ llr,
                                   const int* __restrict__ chk_var,
                                   const int* __restrict__ var_slot,
                                   int* __restrict__ x_out,
-                                  int* __restrict__ it_out, int C, int V,
-                                  int Dc, int Dv, int max_iter,
-                                  int check_init) {
+                                  int* __restrict__ it_out, int B, int C,
+                                  int V, int Dc, int Dv, int max_iter,
+                                  int check_init, Caps caps) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_llr = reinterpret_cast<float*>(smem);
   float* s_marg = s_llr + V;  // kRef: the class-encoded marginal
   float* s_c2v = s_marg + V;
 
   const int b = blockIdx.x;
+  const size_t plane = static_cast<size_t>(B) * V;
   const float* llr_b = llr + static_cast<size_t>(b) * V;
+  int* x_b = x_out + static_cast<size_t>(b) * V;
   for (int v = threadIdx.x; v < V; v += blockDim.x) {
     const float l = llr_b[v];
     s_llr[v] = l;
@@ -148,6 +164,7 @@ __global__ void spa_decode_kernel(const float* __restrict__ llr,
   __syncthreads();
 
   int it = 0;
+  int kn = 0;  // next snapshot plane to write
   while (it < max_iter) {
     // Check pass: syndrome of x_hat = (marg < 0), and the new c2v.
     int unsat = 0;
@@ -242,12 +259,22 @@ __global__ void spa_decode_kernel(const float* __restrict__ llr,
       s_marg[v] = marg;
     }
     ++it;
+    if (it == caps.at[kn]) {
+      int* x_k = x_b + kn * plane;
+      for (int v = threadIdx.x; v < V; v += blockDim.x) {
+        x_k[v] = s_marg[v] < 0.f ? 1 : 0;
+      }
+      ++kn;
+    }
     __syncthreads();
   }
 
-  int* x_b = x_out + static_cast<size_t>(b) * V;
-  for (int v = threadIdx.x; v < V; v += blockDim.x) {
-    x_b[v] = s_marg[v] < 0.f ? 1 : 0;
+  // Planes the loop never reached hold the final decisions.
+  for (int k = kn; k < caps.n; ++k) {
+    int* x_k = x_b + k * plane;
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      x_k[v] = s_marg[v] < 0.f ? 1 : 0;
+    }
   }
   if (threadIdx.x == 0) it_out[b] = it;
 }
@@ -255,8 +282,8 @@ __global__ void spa_decode_kernel(const float* __restrict__ llr,
 template <typename MsgT, bool kRef>
 cudaError_t launch(const float* llr, const int* chk_var, const int* var_slot,
                    int* x_out, int* it_out, int B, int C, int V, int Dc,
-                   int Dv, int max_iter, int check_init, int threads,
-                   cudaStream_t stream) {
+                   int Dv, int max_iter, int check_init, const Caps& caps,
+                   int threads, cudaStream_t stream) {
   const size_t smem = (2 * static_cast<size_t>(V) +
                        static_cast<size_t>(Dc) * C) * sizeof(float);
   auto kernel = spa_decode_kernel<MsgT, kRef>;
@@ -267,7 +294,8 @@ cudaError_t launch(const float* llr, const int* chk_var, const int* var_slot,
     if (e != cudaSuccess) return e;
   }
   kernel<<<B, threads, smem, stream>>>(llr, chk_var, var_slot, x_out, it_out,
-                                       C, V, Dc, Dv, max_iter, check_init);
+                                       B, C, V, Dc, Dv, max_iter, check_init,
+                                       caps);
   return cudaGetLastError();
 }
 
@@ -277,10 +305,16 @@ extern "C" int spa_decode_launch(const void* llr, const void* chk_var,
                                  const void* var_slot, void* x_out,
                                  void* it_out, int B, int C, int V, int Dc,
                                  int Dv, int max_iter, int check_init,
-                                 int bf16, int ref, int threads,
-                                 void* stream) {
+                                 int bf16, int ref, const int* caps,
+                                 int n_caps, int threads, void* stream) {
   if (B == 0) return static_cast<int>(cudaSuccess);
-  if (Dc > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (Dc > kMaxD || n_caps < 1 || n_caps > kMaxCaps ||
+      caps[n_caps - 1] != max_iter) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Caps cp;
+  cp.n = n_caps;
+  for (int k = 0; k < kMaxCaps; ++k) cp.at[k] = k < n_caps ? caps[k] : -1;
   const auto* l = static_cast<const float*>(llr);
   const auto* cv = static_cast<const int*>(chk_var);
   const auto* vs = static_cast<const int*>(var_slot);
@@ -290,14 +324,16 @@ extern "C" int spa_decode_launch(const void* llr, const void* chk_var,
   cudaError_t e;
   if (bf16) {
     e = ref ? launch<__nv_bfloat16, true>(l, cv, vs, x, it, B, C, V, Dc, Dv,
-                                          max_iter, check_init, threads, s)
+                                          max_iter, check_init, cp, threads,
+                                          s)
             : launch<__nv_bfloat16, false>(l, cv, vs, x, it, B, C, V, Dc, Dv,
-                                           max_iter, check_init, threads, s);
+                                           max_iter, check_init, cp, threads,
+                                           s);
   } else {
     e = ref ? launch<float, true>(l, cv, vs, x, it, B, C, V, Dc, Dv,
-                                  max_iter, check_init, threads, s)
+                                  max_iter, check_init, cp, threads, s)
             : launch<float, false>(l, cv, vs, x, it, B, C, V, Dc, Dv,
-                                   max_iter, check_init, threads, s);
+                                   max_iter, check_init, cp, threads, s);
   }
   return static_cast<int>(e);
 }

@@ -9,7 +9,8 @@ Messages are bf16 or f32, as ``msg_dtype`` says — never swapped behind the
 caller's back. Semantics are the JAX package's: ``check_init`` (the biAWGN
 factories set False), the per-word done freeze, iteration counts,
 ``max_iter <= 0`` meaning "run to convergence", bounded by ``iter_cap``,
-and SPA's ``inf_policy``: "reference" (the default) reproduces the
+``decode_multi_cap`` (the decisions at several iteration caps from one
+pass), and SPA's ``inf_policy``: "reference" (the default) reproduces the
 reference decoder's float64 inf/NaN cascade, which the committed SPA
 goldens depend on; "saturate" is the clean decoder. MSA forces
 "saturate".
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ldpc_decoders_tpu_torch.ops.caps import check_caps
 from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, bp_tables
 from ldpc_decoders_tpu_torch.ops.msa_kernel import (  # noqa: F401
     MSG_DTYPES,
@@ -77,15 +79,26 @@ class BPDecoder:
         self.msg_dtype = msg_dtype
         self.tables = bp_tables(self.graph)
 
-    def decode(self, llr: torch.Tensor) -> tuple:
-        kw = dict(max_iter=self.iter_cap, check_init=self.check_init,
-                  msg_dtype=self.msg_dtype)
+    def _decode(self, llr: torch.Tensor, max_iter: int, caps) -> tuple:
+        kw = dict(max_iter=max_iter, check_init=self.check_init,
+                  msg_dtype=self.msg_dtype, caps=caps)
         llr = llr.to(torch.float32).contiguous()
         if self.variant == "MSA":
             return msa_decode(llr, self.tables, **kw)
         return spa_decode(llr, self.tables, inf_policy=self.inf_policy, **kw)
 
-    def decode_multi_cap(self, llr, caps):
-        raise NotImplementedError(
-            "decode_multi_cap (caps= snapshot planes) is not ported yet "
-            "(ROADMAP A.8)")
+    def decode(self, llr: torch.Tensor) -> tuple:
+        return self._decode(llr, self.iter_cap, None)
+
+    def decode_multi_cap(self, llr: torch.Tensor, caps) -> tuple:
+        """One decode pass, decisions at every iteration cap in ``caps``
+        (ascending positive ints). A word's trajectory does not depend on
+        the cap — decisions freeze once the syndrome passes — so one pass
+        bounded by ``caps[-1]`` snapshots them: ``x_hats[k]`` is bit for
+        bit ``decode`` at ``max_iter=caps[k]`` and ``iters[k] =
+        min(iters, caps[k])``. Returns (x_hats [K, B, V] int32,
+        iters [K, B] int32)."""
+        caps = check_caps(caps, caps[-1])
+        x_hats, iters = self._decode(llr, caps[-1], caps)
+        caps_t = torch.tensor(caps, dtype=torch.int32, device=iters.device)
+        return x_hats, torch.minimum(iters[None], caps_t[:, None])

@@ -74,28 +74,35 @@ class MonteCarloRunner:
     def __init__(self, cfg: RunConfig):
         self.cfg = cfg
         if cfg.channel not in CHANNELS:
-            raise NotImplementedError(
-                f"channel {cfg.channel!r} is not ported yet (ROADMAP A.6)")
+            raise ValueError(f"unknown channel {cfg.channel!r}")
         self.mod = CHANNELS[cfg.channel]
-        if cfg.decoder not in self.mod.DECODERS:
-            raise NotImplementedError(
-                f"decoder {cfg.decoder!r} is not ported yet (ROADMAP A)")
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is available (use --device cpu for the "
                                "plain PyTorch route)")
         self.code = get_code(cfg.code)
-        self.dec = self.mod.DECODERS[cfg.decoder](self.code,
-                                                  **cfg.decoder_kwargs())
+        self.dec = self._make_decoder()
         if cfg.codeword == -1:
             if self.code.cb is None:
                 raise ValueError("codeword -1 needs a code with a generator "
                                  "(the built-in codes)")
             self._cb = torch.as_tensor(self.code.cb, dtype=torch.int32,
                                        device=self.device)
+        self._make_savers()
 
-        # Run identity: the JAX package's id-key convention.
+    def _make_decoder(self):
+        cfg = self.cfg
+        if cfg.decoder not in self.mod.DECODERS:
+            raise NotImplementedError(
+                f"decoder {cfg.decoder!r} is not ported yet (ROADMAP A)")
+        return self.mod.DECODERS[cfg.decoder](self.code,
+                                              **cfg.decoder_kwargs())
+
+    def _make_savers(self) -> None:
+        """Run identity (the JAX package's id-key convention), logger and
+        Saver."""
+        cfg = self.cfg
         id_keys = (["channel", "code", "decoder", "codeword", "min_wec"]
                    + list(self.dec.id_keys or []))
         cfg_vars = dataclasses.asdict(cfg)

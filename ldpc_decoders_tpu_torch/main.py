@@ -29,7 +29,6 @@ _NOT_PORTED = {
     "--mesh-code": "A.15 (edge-sharded BP)",
     "--kernel": "A.4 (the port has one route per device)",
 }
-_CHANNEL_ITEM = {"bec": "A.6"}
 _DECODER_ITEM = {"ML": "A.7", "LP": "A.10", "ADMM": "A.9", "ADMMA": "A.13"}
 
 
@@ -53,7 +52,7 @@ def bind_parser_common(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 def setup_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="LDPC Monte-Carlo channel simulation (PyTorch / CUDA)")
-    parser.add_argument("channel", choices=sorted({*CHANNELS, *_CHANNEL_ITEM}))
+    parser.add_argument("channel", choices=sorted(CHANNELS))
     parser.add_argument("code", choices=get_code_names(),
                         help="code name (set FILE_CODES_DIR for file codes)")
     parser.add_argument("decoder", choices=DECODER_NAMES)
@@ -91,7 +90,8 @@ def setup_parser() -> argparse.ArgumentParser:
                         help="safety cap on words per sweep point")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 BP messages (the bf16 kernel); "
-                             "without it the float32 kernel runs")
+                             "without it the float32 kernel runs (the "
+                             "erasure decoder has integer messages)")
     parser.add_argument("--inf-policy", choices=["reference", "saturate"],
                         default="reference",
                         help="SPA inf semantics: the reference's float64 "
@@ -117,9 +117,6 @@ def setup_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     parser = setup_parser()
     args = parser.parse_args(argv)
-    if args.channel in _CHANNEL_ITEM:
-        parser.error(f"channel {args.channel!r} is not ported yet "
-                     f"(ROADMAP {_CHANNEL_ITEM[args.channel]})")
     if args.decoder in _DECODER_ITEM:
         parser.error(f"decoder {args.decoder!r} is not ported yet "
                      f"(ROADMAP {_DECODER_ITEM[args.decoder]})")

@@ -20,15 +20,27 @@ route's (the two differ in bf16):
 - x_hat = marg < 0; the syndrome is checked on the updated x_hat after
   every iteration (``check_init`` adds a check before the first); a word
   whose syndrome passes is frozen; ``iters`` counts its active iterations.
+
+With ``caps`` (ascending positive iteration caps, ``max_iter ==
+caps[-1]``) both routes return ``x_hats [K, B, V]``: plane k holds the
+decisions after ``caps[k]`` iterations, or the final ones where the word
+finished earlier — bit for bit what a decode at ``max_iter=caps[k]``
+returns (the ``caps=`` snapshot planes of the Pallas kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Sequence
 
 import torch
 
 from ldpc_decoders_tpu_torch.ops._build import load_library
+from ldpc_decoders_tpu_torch.ops.caps import (
+    caps_array,
+    check_caps,
+    fill_planes,
+)
 from ldpc_decoders_tpu_torch.ops.graph import (
     BPTables,
     exclusive_sign_parity,
@@ -55,9 +67,12 @@ def msa_check_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def msa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
-                     check_init: bool, msg_dtype: torch.dtype) -> tuple:
+                     check_init: bool, msg_dtype: torch.dtype,
+                     caps: Optional[Sequence[int]] = None) -> tuple:
     """The plain PyTorch version: llr [B, V] -> (x_hat [B, V] int32,
-    iters [B] int32), batched over [B, C, Dc] tensors with done masks."""
+    iters [B] int32), batched over [B, C, Dc] tensors with done masks;
+    with ``caps`` the first output is x_hats [K, B, V]."""
+    snaps = check_caps(caps, max_iter)
     f32 = torch.float32
 
     def rnd(v):
@@ -73,7 +88,8 @@ def msa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
     done = (syndrome_ok(x_hat, t) if check_init
             else torch.zeros(B, dtype=torch.bool, device=llr.device))
     iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
-    for _ in range(max_iter):
+    x_hats = [None] * len(snaps)
+    for it in range(1, max_iter + 1):
         if bool(done.all()):
             break
         v2c = rnd(rnd(marg[:, t.chk_var]) - c2v)
@@ -89,13 +105,18 @@ def msa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
         x_hat = marg < 0
         iters += active.to(torch.int32)
         done = done | syndrome_ok(x_hat, t)
-    return x_hat.to(torch.int32), iters
+        if it in snaps:
+            x_hats[snaps.index(it)] = x_hat.to(torch.int32)
+    return fill_planes(x_hats, x_hat.to(torch.int32), caps), iters
 
 
 def msa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
-                    check_init: bool, msg_dtype: torch.dtype) -> tuple:
+                    check_init: bool, msg_dtype: torch.dtype,
+                    caps: Optional[Sequence[int]] = None) -> tuple:
     """Launch ``csrc/msa_decode.cu`` on the current stream (no sync).
-    Counts launches in ``msa_decode_cuda.launches``."""
+    Counts single-cap launches in ``msa_decode_cuda.launches`` and
+    ``caps=`` launches in ``msa_decode_cuda.launches_caps``."""
+    snaps = check_caps(caps, max_iter)
     if not llr.is_cuda:
         raise ValueError("msa_decode_cuda needs a CUDA tensor")
     if llr.dtype != torch.float32 or llr.dim() != 2 or not llr.is_contiguous():
@@ -113,32 +134,40 @@ def msa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                 or not tab.is_contiguous()):
             raise ValueError("kernel tables must be contiguous int32 on the "
                              "device of llr")
+    cap_arr = caps_array(snaps)
     lib = _kernel_library()
     B = llr.shape[0]
-    x_hat = torch.empty((B, V), dtype=torch.int32, device=llr.device)
+    x_hats = torch.empty((len(snaps), B, V), dtype=torch.int32,
+                         device=llr.device)
     iters = torch.empty((B,), dtype=torch.int32, device=llr.device)
     stream = torch.cuda.current_stream(llr.device).cuda_stream
     with torch.cuda.device(llr.device):
         rc = lib.msa_decode_launch(
             llr.data_ptr(), t.k_chk_var.data_ptr(), t.k_var_slot.data_ptr(),
-            x_hat.data_ptr(), iters.data_ptr(), B, C, V, Dc, Dv,
+            x_hats.data_ptr(), iters.data_ptr(), B, C, V, Dc, Dv,
             int(max_iter), int(bool(check_init)),
-            int(msg_dtype == torch.bfloat16), THREADS, stream)
+            int(msg_dtype == torch.bfloat16), cap_arr, len(snaps), THREADS,
+            stream)
     if rc != 0:
         raise RuntimeError("msa_decode kernel launch failed: "
                            + lib.msa_decode_error_string(rc).decode())
-    msa_decode_cuda.launches += 1
-    return x_hat, iters
+    if caps is None:
+        msa_decode_cuda.launches += 1
+        return x_hats[0], iters
+    msa_decode_cuda.launches_caps += 1
+    return x_hats, iters
 
 
 msa_decode_cuda.launches = 0
+msa_decode_cuda.launches_caps = 0
 
 
 def _kernel_library() -> ctypes.CDLL:
     lib = load_library("msa_decode")
     if lib.msa_decode_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.msa_decode_launch.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
+        lib.msa_decode_launch.argtypes = ([p, p, p, p, p] + [i] * 8
+                                          + [ctypes.POINTER(i), i, i, p])
         lib.msa_decode_launch.restype = i
         lib.msa_decode_error_string.argtypes = [i]
         lib.msa_decode_error_string.restype = ctypes.c_char_p
@@ -146,9 +175,11 @@ def _kernel_library() -> ctypes.CDLL:
 
 
 def msa_decode(llr: torch.Tensor, t: BPTables, *, max_iter: int,
-               check_init: bool, msg_dtype: torch.dtype) -> tuple:
+               check_init: bool, msg_dtype: torch.dtype,
+               caps: Optional[Sequence[int]] = None) -> tuple:
     """Route by device: CPU -> plain version, CUDA -> kernel (or raise)."""
-    kw = dict(max_iter=max_iter, check_init=check_init, msg_dtype=msg_dtype)
+    kw = dict(max_iter=max_iter, check_init=check_init, msg_dtype=msg_dtype,
+              caps=caps)
     if llr.is_cuda:
         return msa_decode_cuda(llr, t, **kw)
     if llr.device.type == "cpu":

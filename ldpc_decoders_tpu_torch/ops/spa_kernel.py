@@ -27,7 +27,11 @@ Both routes follow the Pallas kernels' semantics:
 - x_hat = marg < 0 (a NaN marginal decides bit 0), the syndrome is checked
   on the updated x_hat after every iteration (``check_init`` adds a check
   before the first), a word whose syndrome passes is frozen, and ``iters``
-  counts its active iterations.
+  counts its active iterations;
+- with ``caps`` (ascending positive iteration caps, ``max_iter ==
+  caps[-1]``) both routes return ``x_hats [K, B, V]``: plane k holds the
+  decisions after ``caps[k]`` iterations, or the final ones where the word
+  finished earlier, through the same decision rule as the final output.
 
 ``phi`` divides ``x * x`` by a 0-dim device tensor, not a Python scalar:
 on CUDA torch divides by a host scalar as a multiply by its reciprocal,
@@ -37,10 +41,16 @@ which rounds differently from the kernel's IEEE division.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Sequence
 
 import torch
 
 from ldpc_decoders_tpu_torch.ops._build import load_library
+from ldpc_decoders_tpu_torch.ops.caps import (
+    caps_array,
+    check_caps,
+    fill_planes,
+)
 from ldpc_decoders_tpu_torch.ops.graph import (
     BPTables,
     exclusive_sign_parity,
@@ -133,10 +143,13 @@ def _check_policy(inf_policy: str) -> None:
 
 def spa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                      check_init: bool, msg_dtype: torch.dtype,
-                     inf_policy: str) -> tuple:
+                     inf_policy: str,
+                     caps: Optional[Sequence[int]] = None) -> tuple:
     """The plain PyTorch version: llr [B, V] -> (x_hat [B, V] int32,
-    iters [B] int32), batched over [B, C, Dc] tensors with done masks."""
+    iters [B] int32), batched over [B, C, Dc] tensors with done masks;
+    with ``caps`` the first output is x_hats [K, B, V]."""
     _check_policy(inf_policy)
+    snaps = check_caps(caps, max_iter)
     ref = inf_policy == "reference"
     f32 = torch.float32
 
@@ -151,7 +164,8 @@ def spa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
     done = (syndrome_ok(x_hat, t) if check_init
             else torch.zeros(B, dtype=torch.bool, device=llr.device))
     iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
-    for _ in range(max_iter):
+    x_hats = [None] * len(snaps)
+    for it in range(1, max_iter + 1):
         if bool(done.all()):
             break
         if ref:
@@ -184,15 +198,20 @@ def spa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
         x_hat = marg < 0
         iters += active.to(torch.int32)
         done = done | syndrome_ok(x_hat, t)
-    return x_hat.to(torch.int32), iters
+        if it in snaps:
+            x_hats[snaps.index(it)] = x_hat.to(torch.int32)
+    return fill_planes(x_hats, x_hat.to(torch.int32), caps), iters
 
 
 def spa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                     check_init: bool, msg_dtype: torch.dtype,
-                    inf_policy: str) -> tuple:
+                    inf_policy: str,
+                    caps: Optional[Sequence[int]] = None) -> tuple:
     """Launch ``csrc/spa_decode.cu`` on the current stream (no sync).
-    Counts launches per policy in ``spa_decode_cuda.launches``."""
+    Counts launches per policy: single-cap in ``spa_decode_cuda.launches``,
+    ``caps=`` in ``spa_decode_cuda.launches_caps``."""
     _check_policy(inf_policy)
+    snaps = check_caps(caps, max_iter)
     if not llr.is_cuda:
         raise ValueError("spa_decode_cuda needs a CUDA tensor")
     if llr.dtype != torch.float32 or llr.dim() != 2 or not llr.is_contiguous():
@@ -211,33 +230,41 @@ def spa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                 or not tab.is_contiguous()):
             raise ValueError("kernel tables must be contiguous int32 on the "
                              "device of llr")
+    cap_arr = caps_array(snaps)
     lib = _kernel_library()
     B = llr.shape[0]
-    x_hat = torch.empty((B, V), dtype=torch.int32, device=llr.device)
+    x_hats = torch.empty((len(snaps), B, V), dtype=torch.int32,
+                         device=llr.device)
     iters = torch.empty((B,), dtype=torch.int32, device=llr.device)
     stream = torch.cuda.current_stream(llr.device).cuda_stream
     with torch.cuda.device(llr.device):
         rc = lib.spa_decode_launch(
             llr.data_ptr(), t.k_chk_var.data_ptr(), t.k_var_slot.data_ptr(),
-            x_hat.data_ptr(), iters.data_ptr(), B, C, V, Dc, Dv,
+            x_hats.data_ptr(), iters.data_ptr(), B, C, V, Dc, Dv,
             int(max_iter), int(bool(check_init)),
             int(msg_dtype == torch.bfloat16),
-            int(inf_policy == "reference"), THREADS, stream)
+            int(inf_policy == "reference"), cap_arr, len(snaps), THREADS,
+            stream)
     if rc != 0:
         raise RuntimeError("spa_decode kernel launch failed: "
                            + lib.spa_decode_error_string(rc).decode())
-    spa_decode_cuda.launches[inf_policy] += 1
-    return x_hat, iters
+    if caps is None:
+        spa_decode_cuda.launches[inf_policy] += 1
+        return x_hats[0], iters
+    spa_decode_cuda.launches_caps[inf_policy] += 1
+    return x_hats, iters
 
 
 spa_decode_cuda.launches = dict.fromkeys(INF_POLICIES, 0)
+spa_decode_cuda.launches_caps = dict.fromkeys(INF_POLICIES, 0)
 
 
 def _kernel_library() -> ctypes.CDLL:
     lib = load_library("spa_decode")
     if lib.spa_decode_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.spa_decode_launch.argtypes = [p, p, p, p, p] + [i] * 10 + [p]
+        lib.spa_decode_launch.argtypes = ([p, p, p, p, p] + [i] * 9
+                                          + [ctypes.POINTER(i), i, i, p])
         lib.spa_decode_launch.restype = i
         lib.spa_decode_error_string.argtypes = [i]
         lib.spa_decode_error_string.restype = ctypes.c_char_p
@@ -245,11 +272,11 @@ def _kernel_library() -> ctypes.CDLL:
 
 
 def spa_decode(llr: torch.Tensor, t: BPTables, *, max_iter: int,
-               check_init: bool, msg_dtype: torch.dtype,
-               inf_policy: str) -> tuple:
+               check_init: bool, msg_dtype: torch.dtype, inf_policy: str,
+               caps: Optional[Sequence[int]] = None) -> tuple:
     """Route by device: CPU -> plain version, CUDA -> kernel (or raise)."""
     kw = dict(max_iter=max_iter, check_init=check_init, msg_dtype=msg_dtype,
-              inf_policy=inf_policy)
+              inf_policy=inf_policy, caps=caps)
     if llr.is_cuda:
         return spa_decode_cuda(llr, t, **kw)
     if llr.device.type == "cpu":

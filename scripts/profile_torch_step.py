@@ -1,16 +1,32 @@
 """Where the time of the port's Monte-Carlo step goes, on one CUDA device.
 
-    python scripts/profile_torch_step.py [--batch 16384] [--out report.json]
+    python scripts/profile_torch_step.py [--step msa|bec|caps]
+        [--batch 16384] [--out report.json]
+    python scripts/profile_torch_step.py --campaign REG_BAD [--out report.json]
 
-For biAWGN LDPC(1200,3,6) MSA bf16 at 2.5 and 3.0 dB:
+The step, all on LDPC(1200,3,6):
+
+- ``msa`` (default): biAWGN min-sum bf16 at 2.5 and 3.0 dB;
+- ``bec``: the erasure step (BEC, ternary erasure SPA, cap 10) at p=0.375
+  and 0.4;
+- ``caps``: the multi-cap step of the iteration-cap sweep (biAWGN min-sum
+  bf16 at 2.0 dB, REG_BAD's labels 0,1,2,3,6,10,40,100 from one decode).
+
+For each point:
 
 1. ``torch.profiler`` over a steady window of the runner's chunk (sample
    -> LLR -> decode -> tally): device time by kernel, and the device's
    busy share of the window's wall time;
-2. the runner end to end (adaptive pipeline, one packed tally per chunk):
-   ``words_per_sec`` over a fixed number of words;
+2. the runner end to end (one packed tally per chunk): ``words_per_sec``
+   over a fixed number of words;
 3. the decode kernel alone (CUDA events) at 128, 256 and 512 threads per
    codeword.
+
+With ``--campaign`` the script instead runs that whole campaign case once
+(``campaign.run_campaign``, its own batch and ``min_wec``) after building
+the kernels, and prints its wall time and, for every Saver file that has a
+committed golden of the same name in ``artifacts/data``, the z-score
+(Agresti-Coull) of each sweep point's WER against the golden's.
 
 Every line carries the card's name and power limit.
 """
@@ -19,22 +35,100 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ldpc_decoders_tpu_torch.channels import biawgn  # noqa: E402
-from ldpc_decoders_tpu_torch.harness import MonteCarloRunner, RunConfig  # noqa: E402
-from ldpc_decoders_tpu_torch.ops import msa_kernel  # noqa: E402
+from ldpc_decoders_tpu_torch import campaign  # noqa: E402
+from ldpc_decoders_tpu_torch.channels import CHANNELS  # noqa: E402
+from ldpc_decoders_tpu_torch.harness import (  # noqa: E402
+    CapSweepRunner,
+    MonteCarloRunner,
+    RunConfig,
+)
+from ldpc_decoders_tpu_torch.ops import (  # noqa: E402
+    _build,
+    bec_kernel,
+    msa_kernel,
+)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARTIFACTS = os.path.join(ROOT, "artifacts", "data")
+
+_MSA = dict(channel="biawgn", decoder="MSA", codeword=1, msg_dtype="bfloat16")
+# step -> (RunConfig fields, sweep points, cap labels or None, the module
+# whose THREADS the kernel launches with)
+STEPS = {
+    "msa": (_MSA, (2.5, 3.0), None, msa_kernel),
+    "bec": (dict(channel="bec", decoder="SPA", codeword=0), (0.375, 0.4),
+            None, bec_kernel),
+    "caps": (_MSA, (2.0,), [0, 1, 2, 3, 6, 10, 40, 100], msa_kernel),
+}
+
+
+def ac_var(w: float, t: int) -> float:
+    """Agresti-Coull adjusted binomial variance of an observed rate."""
+    p = (w * t + 2.0) / (t + 4.0)
+    return p * (1.0 - p) / (t + 4.0)
+
+
+def campaign_report(case: str, card: str) -> dict:
+    """Run campaign ``case`` once; wall time and z per Saver file and sweep
+    point against the golden of the same name."""
+    t0 = time.perf_counter()
+    for src in ("msa_decode", "spa_decode", "bec_decode"):
+        _build.load_library(src)
+    build_s = time.perf_counter() - t0
+    report = {"card": card, "campaign": case, "build_s": build_s, "files": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        runs = campaign.run_campaign([case], data_dir=tmp)
+        torch.cuda.synchronize()
+        report["wall_s"] = time.perf_counter() - t0
+        report["runs"] = len(runs)
+        print(f"campaign {case}: {len(runs)} runs, {len(os.listdir(tmp))} "
+              f"Saver files in {report['wall_s']:.3f} s (kernel build "
+              f"{build_s:.1f} s before it) | {card}")
+        for name in sorted(os.listdir(tmp)):
+            golden = os.path.join(ARTIFACTS, name)
+            if not os.path.exists(golden):
+                report["files"][name] = None
+                print(f"  {name}: no golden")
+                continue
+            with open(os.path.join(tmp, name)) as fp:
+                saved = json.load(fp)
+            with open(golden) as fp:
+                ref = json.load(fp)
+            zs = {}
+            for key in saved["wer"]:
+                if key not in ref["wer"]:
+                    continue
+                var = (ac_var(saved["wer"][key], saved["tot"][key])
+                       + ac_var(ref["wer"][key], ref["tot"][key]))
+                zs[key] = (saved["wer"][key] - ref["wer"][key]) / math.sqrt(var)
+            report["files"][name] = zs
+            worst = max(zs, key=lambda k: abs(zs[k])) if zs else None
+            over = [f"{k}: {saved['wer'][k]:.5f} vs {ref['wer'][k]:.5f}"
+                    for k in sorted(zs) if abs(zs[k]) > 4.0]
+            print(f"  {name}: {len(zs)} points, max |z| "
+                  f"{abs(zs[worst]) if zs else float('nan'):.3f} at {worst}, "
+                  f"|z| > 4 (WER vs golden) at {over}")
+    return report
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--campaign", choices=sorted(campaign.all_cases.keys()),
+                    default=None, help="run this campaign case against the "
+                                       "goldens instead of profiling a step")
+    ap.add_argument("--step", choices=sorted(STEPS), default="msa")
     ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--chunks", type=int, default=40)
     ap.add_argument("--out", default=None, help="also write the report here")
@@ -44,14 +138,20 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    report = {"card": card, "batch": args.batch, "points": {}}
+    if args.campaign:
+        write_report(campaign_report(args.campaign, card), args.out)
+        return
+    report = {"card": card, "step": args.step, "batch": args.batch,
+              "points": {}}
     B = args.batch
-    for snr in (2.5, 3.0):
-        cfg = RunConfig(channel="biawgn", code="1200_3_6_ldpc",
-                        decoder="MSA", params=[snr], codeword=1,
+    cfg_kw, points, labels, kernel_mod = STEPS[args.step]
+    unit = "dB" if cfg_kw["channel"] == "biawgn" else "p"
+    for snr in points:
+        cfg = RunConfig(code="1200_3_6_ldpc", params=[snr],
                         min_wec=10 ** 12, batch=B, max_words=B * args.chunks,
-                        msg_dtype="bfloat16", device="cuda", log_freq=1e9)
-        runner = MonteCarloRunner(cfg)
+                        device="cuda", log_freq=1e9, **cfg_kw)
+        runner = (CapSweepRunner(cfg, labels) if labels
+                  else MonteCarloRunner(cfg))
         gen = runner._generator(0)
         for _ in range(3):
             runner._chunk(snr, gen)
@@ -81,41 +181,54 @@ def main() -> None:
                  "idle_share": max(0.0, 1.0 - busy / step_ms),
                  "kernels": [{"name": k[:90], "ms_per_step": ms,
                               "calls_per_step": c} for k, ms, c in rows]}
-        print(f"{snr} dB profile: step {step_ms:.4f} ms, device busy "
+        print(f"{snr} {unit} profile: step {step_ms:.4f} ms, device busy "
               f"{busy:.4f} ms ({100 * busy / step_ms:.1f}%) | {card}")
         for k, ms, c in rows[:12]:
             print(f"    {ms:9.4f} ms  x{c:<3d} {k[:90]}")
 
-        res = runner.run()[snr]
+        res = runner.run()
+        # A cap sweep reports per label: take the largest cap's line.
+        res = res[max(labels)][snr] if labels else res[snr]
         point["runner"] = dict(res)
-        print(f"{snr} dB runner: {res['tot']} words, wer {res['wer']:.6f}, "
-              f"{res['words_per_sec']:.1f} cw/s | {card}")
+        print(f"{snr} {unit} runner: {res['tot']} words, wer "
+              f"{res['wer']:.6f}, {res['words_per_sec']:.1f} cw/s | {card}")
 
-        dec = runner.dec.dec  # the BPDecoder behind the channel adapter
-        x = torch.ones((B, 1200), dtype=torch.int32, device="cuda")
-        llr = biawgn.llr(biawgn.send(x, snr, gen), snr)
+        mod = CHANNELS[cfg.channel]
+        x = torch.full((B, 1200), cfg.codeword, dtype=torch.int32,
+                       device="cuda")
+        y = mod.send(x, snr, gen)
+        inp = y if cfg.channel == "bec" else mod.llr(y, snr)
+        if labels:
+            def decode():
+                runner.dec.decode_multi_cap(inp, runner.caps)
+        else:
+            decode = lambda: runner.dec.dec.decode(inp)  # noqa: E731
         threads = {}
         for th in (128, 256, 512, 256, 128):
-            msa_kernel.THREADS = th
-            dec.decode(llr)
+            kernel_mod.THREADS = th
+            decode()
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(20):
-                dec.decode(llr)
+                decode()
             stop.record()
             torch.cuda.synchronize()
             threads.setdefault(th, []).append(start.elapsed_time(stop) / 20)
-        msa_kernel.THREADS = 256
+        kernel_mod.THREADS = 256
         point["decode_ms_by_threads"] = threads
-        print(f"{snr} dB decode ms by threads/CTA: "
+        print(f"{snr} {unit} decode ms by threads/CTA: "
               + ", ".join(f"{k}: {v}" for k, v in threads.items())
               + f" | {card}")
         report["points"][str(snr)] = point
 
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as fp:
+    write_report(report, args.out)
+
+
+def write_report(report: dict, out) -> None:
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as fp:
             json.dump(report, fp, indent=1)
 
 

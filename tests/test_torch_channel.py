@@ -93,7 +93,7 @@ def test_bsc_send_flip_moments(p):
 
 
 def test_channel_registry():
-    assert set(CHANNELS) == {"biawgn", "bsc"}
+    assert set(CHANNELS) == {"bec", "biawgn", "bsc"}
     assert set(bsc.DECODERS) == set(biawgn.DECODERS) == {"SPA", "MSA"}
     from ldpc_decoders_tpu_torch.codes import get_code
     code = get_code("7_4_hamming")

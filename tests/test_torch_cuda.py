@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the CUDA min-sum and SPA kernels against their
-plain PyTorch versions, bit for bit (decisions and iteration counts).
+"""PyTorch port on the card: the CUDA min-sum, SPA and erasure kernels
+against their plain PyTorch versions, bit for bit (decisions and iteration
+counts), single-cap and with ``caps=`` snapshot planes.
 Marked ``cuda`` and skipped without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -13,9 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from ldpc_decoders_tpu_torch.channels import biawgn, bsc  # noqa: E402
+from ldpc_decoders_tpu_torch.channels import bec, biawgn, bsc  # noqa: E402
 from ldpc_decoders_tpu_torch.codes import get_code  # noqa: E402
-from ldpc_decoders_tpu_torch.ops import msa_kernel, spa_kernel  # noqa: E402
+from ldpc_decoders_tpu_torch.ops import bec_kernel, msa_kernel, spa_kernel  # noqa: E402
 from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, bp_tables  # noqa: E402
 
 
@@ -124,3 +125,118 @@ def test_spa_kernel_check_init_and_refusals(cuda):
     with pytest.raises(ValueError, match="check degree"):
         spa_kernel.spa_decode_cuda(llr[:, :12].contiguous(), wide,
                                    check_init=True, **kw)
+
+
+def _erased(code, p, batch, cuda, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.zeros((batch, code.get_n()), dtype=torch.int32, device=cuda)
+    return bec.send(x, p, gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,p,max_iter", [
+    ("1200_3_6_ldpc", 0.45, 10),
+    ("1200_3_6_ldpc", 0.375, 100),
+    ("1200_3_6_ldpc", 0.3, 2000),
+    ("1200_rho_x5_rand_ldpc_3", 0.4, 100),
+    ("margulis", 0.375, 10),
+    ("7_4_hamming", 0.3, 10),
+])
+def test_bec_kernel_bit_equal_plain(cuda, name, p, max_iter):
+    code = get_code(name)
+    t = bp_tables(code.graph.to(cuda))
+    y = _erased(code, p, 1024, cuda, seed=5)
+    y[0] = 0                                       # an erasure-free word
+    before = bec_kernel.bec_spa_decode_cuda.launches
+    xk, ik = bec_kernel.bec_spa_decode(y, t, max_iter=max_iter)
+    assert bec_kernel.bec_spa_decode_cuda.launches == before + 1
+    xp, ip = bec_kernel.bec_spa_decode_plain(y, t, max_iter=max_iter)
+    torch.cuda.synchronize()
+    assert torch.equal(xk, xp) and torch.equal(ik, ip), (
+        int((xk != xp).any(dim=1).sum()), int((ik != ip).sum()))
+    assert int(ik[0]) == 0 and int(ik.max()) > 1
+
+
+@pytest.mark.cuda
+def test_bec_kernel_random_symbols_and_refusals(cuda):
+    """Uniformly random symbols are no codeword's image: checks disagree
+    and marginals return to 0, which the literal stopping test must
+    follow."""
+    code = get_code("1200_3_6_ldpc")
+    t = bp_tables(code.graph.to(cuda))
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    y = torch.randint(0, 3, (512, 1200), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    xk, ik = bec_kernel.bec_spa_decode_cuda(y, t, max_iter=50)
+    xp, ip = bec_kernel.bec_spa_decode_plain(y, t, max_iter=50)
+    torch.cuda.synchronize()
+    assert torch.equal(xk, xp) and torch.equal(ik, ip)
+    x, it = bec_kernel.bec_spa_decode_cuda(y[:0], t, max_iter=10)
+    assert x.shape == (0, 1200) and it.shape == (0,)
+    for bad in (y.float(), y[:, :600], y.cpu(), y.t()):
+        with pytest.raises(ValueError):
+            bec_kernel.bec_spa_decode_cuda(bad, t, max_iter=10)
+    with pytest.raises(ValueError, match="caps"):
+        bec_kernel.bec_spa_decode_cuda(y, t, max_iter=10, caps=(3, 2, 10))
+    with pytest.raises(ValueError, match="caps"):
+        bec_kernel.bec_spa_decode_cuda(y, t, max_iter=20,
+                                       caps=tuple(range(1, 21)))
+
+
+CAPS = (1, 2, 3, 6, 10, 40, 100)
+
+
+def _assert_planes(cuda_fn, plain_fn, inp, t, kw):
+    """caps= kernel == plain caps= version, and each plane == the
+    single-cap kernel at that cap, bit for bit."""
+    xs, it = cuda_fn(inp, t, max_iter=CAPS[-1], caps=CAPS, **kw)
+    xp, ip = plain_fn(inp, t, max_iter=CAPS[-1], caps=CAPS, **kw)
+    torch.cuda.synchronize()
+    assert xs.shape == (len(CAPS),) + tuple(inp.shape)
+    assert torch.equal(xs, xp) and torch.equal(it, ip)
+    for k, cap in enumerate(CAPS):
+        x1, i1 = cuda_fn(inp, t, max_iter=cap, **kw)
+        assert torch.equal(xs[k], x1), cap
+        assert torch.equal(it.clamp(max=cap), i1), cap
+    assert int(it.max()) > CAPS[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel,param,check_init,msg_dtype", [
+    ("biawgn", 2.0, False, "bfloat16"), ("bsc", 0.05, True, "float32")])
+def test_msa_caps_planes(cuda, channel, param, check_init, msg_dtype):
+    code = get_code("1200_3_6_ldpc")
+    t = bp_tables(code.graph.to(cuda))
+    llr = _llr(code, channel, param, 512, cuda, seed=13)
+    before = msa_kernel.msa_decode_cuda.launches_caps
+    _assert_planes(msa_kernel.msa_decode_cuda, msa_kernel.msa_decode_plain,
+                   llr, t, dict(check_init=check_init,
+                                msg_dtype=getattr(torch, msg_dtype)))
+    assert msa_kernel.msa_decode_cuda.launches_caps == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel,param,check_init,msg_dtype", [
+    ("biawgn", 2.0, False, "bfloat16"), ("bsc", 0.07, True, "float32")])
+@pytest.mark.parametrize("policy", ["reference", "saturate"])
+def test_spa_caps_planes(cuda, channel, param, check_init, msg_dtype, policy):
+    code = get_code("1200_3_6_ldpc")
+    t = bp_tables(code.graph.to(cuda))
+    llr = _llr(code, channel, param, 512, cuda, seed=14)
+    before = spa_kernel.spa_decode_cuda.launches_caps[policy]
+    _assert_planes(spa_kernel.spa_decode_cuda, spa_kernel.spa_decode_plain,
+                   llr, t, dict(check_init=check_init, inf_policy=policy,
+                                msg_dtype=getattr(torch, msg_dtype)))
+    assert spa_kernel.spa_decode_cuda.launches_caps[policy] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["1200_3_6_ldpc", "1200_rho_x5_rand_ldpc_3"])
+def test_bec_caps_planes(cuda, name):
+    code = get_code(name)
+    t = bp_tables(code.graph.to(cuda))
+    y = _erased(code, 0.4, 512, cuda, seed=15)
+    before = bec_kernel.bec_spa_decode_cuda.launches_caps
+    _assert_planes(bec_kernel.bec_spa_decode_cuda,
+                   bec_kernel.bec_spa_decode_plain, y, t, {})
+    assert bec_kernel.bec_spa_decode_cuda.launches_caps == before + 1

@@ -78,7 +78,8 @@ def test_cli_cpu_run_matches_artifact(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["bec", "1200_3_6_ldpc", "SPA"],
+    ["bec", "1200_3_6_ldpc", "ML"],
+    ["bec", "1200_3_6_ldpc", "ADMM"],
     ["bsc", "1200_3_6_ldpc", "ADMM"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--mu", "2.0"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--mesh", "2"],
@@ -126,7 +127,7 @@ def test_runner_random_codeword_and_caps():
                                    decoder="MSA", codeword=-1, device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MonteCarloRunner(RunConfig(channel="bec", code="7_4_hamming",
-                                   decoder="SPA", device="cpu"))
+                                   decoder="ML", device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MonteCarloRunner(RunConfig(channel="bsc", code="7_4_hamming",
                                    decoder="ADMM", device="cpu"))

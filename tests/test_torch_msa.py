@@ -135,7 +135,9 @@ def test_decoder_refuses_unported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bp.BPDecoder(g, "MSA", perm="incidence")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bp.BPDecoder(g, "MSA").decode_multi_cap(torch.zeros(1, 1200), (1,))
+        bp.BPDecoder(g, "SPA", perm="pallas")
+    with pytest.raises(ValueError, match="caps"):
+        bp.BPDecoder(g, "MSA").decode_multi_cap(torch.zeros(1, 1200), (2, 1))
     with pytest.raises(ValueError):
         bp.BPDecoder(g, "MSA", msg_dtype=torch.float16)
     dec = bp.BPDecoder(g, "MSA", msg_dtype="bfloat16", max_iter=0,
