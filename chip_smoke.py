@@ -6,11 +6,12 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device: a CUDA device must be present (there is no CPU fallback); the
    card's name and power limit as nvidia-smi reports them.
-2. Build: the three kernel sources (``ldpc_decoders_tpu_torch/csrc``:
-   ``msa_decode.cu``, ``spa_decode.cu``, ``bec_decode.cu``) compile here,
-   in parallel.
+2. Build: the four kernel sources (``ldpc_decoders_tpu_torch/csrc``:
+   ``msa_decode.cu``, ``spa_decode.cu``, ``bec_decode.cu``,
+   ``admm_decode.cu``) compile here, in parallel.
 3. Kernels against their plain PyTorch versions on the card, B=4096.
-   Tolerance: none — decisions and iteration counts must be bit-equal.
+   Tolerance: none — decisions and iteration counts (and the ADMM
+   kernel's fractional x) must be bit-equal.
    - min-sum (``msa_decode_plain``), bf16 and f32: LDPC(1200,3,6) biAWGN
      at 1.5 and 3.0 dB, the irregular 1200_rho_x5_rand_ldpc_1 at 2.0 dB
      (``check_init=False``), and LDPC(1200,3,6) BSC p=0.05
@@ -27,7 +28,13 @@ Phases (any failure exits non-zero and prints no result line):
      against its plain ``caps=`` version AND each plane against the
      single-cap kernel at that cap: MSA bf16 biAWGN 2.0 dB and f32 BSC
      0.05; SPA under both policies bf16 biAWGN 2.0 dB and f32 BSC 0.07;
-     erasure SPA p=0.4.
+     erasure SPA p=0.4;
+   - ADMM (``admm_decode_plain``), codeword 1, mu 3, eps 1e-5:
+     LDPC(1200,3,6) at cap 50 on biAWGN 2.0 and 3.0 dB, BSC p=0.05 and BEC
+     p=0.35 (+-1e8 LLRs); Hamming(7,4) (variable degrees 1..3) BSC p=0.1
+     cap 50; 1200_rho_x5_rand_ldpc_3 (padded check slots) biAWGN 2.0 dB
+     cap 50; margulis biAWGN 2.0 dB cap 100; margulis BSC p=0.07 in
+     converge mode (bound 8000) on 128 words.
 4. The main paths through the CLI (``main.main``, codeword as stated,
    batch 16384). Each run's kernel launch count is set to 0 just before
    it and must have risen just after; each Saver file must have the JAX
@@ -47,7 +54,23 @@ Phases (any failure exits non-zero and prints no result line):
      at 2.0 dB, BSC SPA f32 at p=0.07; label 0 on biAWGN must give
      WER = BER = 1. A BSC SPA sweep under ``saturate`` drives that
      policy's ``caps=`` kernel (no golden: error counts must not rise
-     with the cap). ``campaign REG_BAD --emit`` must print 40 lines.
+     with the cap). ``campaign REG_BAD --emit`` must print 40 lines;
+   - ADMM, codeword 1: margulis in converge mode (``--max-iter 0
+     --iter-cap 8000 --batch 2048``, the MAR goldens' configuration) at
+     BSC p=0.07, BEC p=0.425 and biAWGN 1.75 dB; Hamming(7,4) ``--max-iter
+     50`` at BSC p=0.1, BEC p=0.3 and biAWGN 3.0 dB; each Saver file must
+     carry ``dec.average`` and a 2000-long ``dec.iter``. LDPC(1200,3,6)
+     biAWGN 2.5 dB cap 50 has no golden: its WER must lie strictly
+     between 0 and 1;
+   - ML and LP (no kernel: a matrix product, and a host decoder) on
+     Hamming(7,4) at the same three points against their goldens;
+   - ``campaign HMG --emit`` and ``MAR --emit`` must print 14 and 8 lines;
+     ``campaign HMG`` and ``campaign MAR`` (words per sweep point bounded
+     by the goldens' own budget of 301056) run whole, and every sweep
+     point of a Saver file that has a golden of the same name must be
+     within |z| <= 4 of it, except LP on the BSC at p <= 0.006, where WER
+     is a tie-break convention that differs by construction
+     (``decoders/lp.py``).
 5. Timing at B=16384: the decode alone (CUDA events) and the whole step
    (sample -> LLR -> decode -> tally, host clock after a synchronize),
    through each kernel and through its plain version, in the order plain,
@@ -55,8 +78,13 @@ Phases (any failure exits non-zero and prints no result line):
    saturate bf16 biAWGN 2.5 dB; SPA reference f32 BSC p=0.05; erasure SPA
    p=0.375 cap 10. The ``caps=`` kernels (K=7, caps up to 100; decode
    only) beside the single-cap kernel at cap 100: MSA and SPA (both
-   policies) bf16 biAWGN 2.0 dB, erasure SPA p=0.4. Each kernel is also
-   held bit-equal to its plain version at this shape.
+   policies) bf16 biAWGN 2.0 dB, erasure SPA p=0.4. ADMM: LDPC(1200,3,6)
+   biAWGN 2.5 dB cap 50; and margulis BSC p=0.07 in converge mode at
+   B=2048, the kernel alone; the plain version is timed on the first 128
+   words beside the kernel on the same 128 (``plain_ms`` with
+   ``plain_batch`` and ``ms_at_plain_batch`` in the ``kernels`` line:
+   measured, not scaled). Each kernel is also held bit-equal to its plain
+   version at this shape.
 
 The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
 bytes it must move (input read once, K output planes and the iteration
@@ -65,8 +93,11 @@ counts written once) over 3.35 TB/s, and its operations over 67 TFLOP/s
 operations are held to the same rate). Operations are counted for this
 run's data: the sum of the words' iteration counts times the edges of the
 graph times ``OPS_PER_EDGE_ITER`` arithmetic operations of the algorithm
-per edge and iteration (a transcendental counts as one). No single
-PyTorch call computes a whole BP decode, so ``library_ms`` is null.
+per edge and iteration (a transcendental counts as one). ADMM's count
+depends on the data twice over: ``admm_ops`` takes the updates the words
+needed and the check rows whose projection needed the bracket search, as
+counted on the plain version's run over the same input. No single PyTorch call
+computes a whole BP or ADMM decode, so ``library_ms`` is null.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -102,6 +133,31 @@ F32_OPS_PER_S = 67e12
 # pass + variable pass; a transcendental counts as one operation).
 OPS_PER_EDGE_ITER = {"msa_decode": 12, "spa_decode": 20,
                      "spa_ref_decode": 30, "bec_decode": 6}
+ADMM_KW = dict(mu=3.0, eps=1e-5)
+MAR_CAP = 8000          # the MAR goldens' bound on a run to convergence
+B_MAR = 2048
+B_MAR_PLAIN = 128
+
+
+def admm_ops(word_iterations: int, bracket_rows: int, n_edge: int,
+             n_var: int, dc: int) -> float:
+    """Arithmetic operations of an ADMM decode, counted from the JAX
+    package's ``_admm_core`` (a compare, select, clip bound or division
+    counts as one).
+
+    Per edge and update, whatever the row: x-update 3 (lam/mu, z - ., the
+    sum) and 5 per variable (gamma/mu, -, /degree, clip); v = x_e + lam/mu
+    2; rank 3 per other slot (>, ==, count); clip and its sum 3; f 1; f.z
+    2; the choice of z_new 1; both norms 6; the dual update 2; per row 4
+    (floor, mod, -, the f.z <= r test).
+    Per row outside the polytope: 2*Dc candidates, each 3 to form, 5 per
+    slot for T (the sign of beta*f, v -+ beta, clip, sum) and 6 to fold
+    into the bracket; beta 6; z_new 3 per slot.
+    At Dc = 6: 37.3 per edge and update, plus 492 per bracket row (82 per
+    edge), so 119 where every row needs the search."""
+    base = 20 + 3 * (dc - 1) + 5 * n_var / n_edge + 4 / dc
+    bracket = 2 * dc * (9 + 5 * dc) + 6 + 3 * dc
+    return word_iterations * n_edge * base + bracket_rows * bracket
 
 
 def fail(msg: str) -> None:
@@ -142,6 +198,7 @@ def main() -> None:
         from ldpc_decoders_tpu_torch.harness import CapSweepRunner, RunConfig
         from ldpc_decoders_tpu_torch.ops import (
             _build,
+            admm_kernel,
             bec_kernel,
             msa_kernel,
             spa_kernel,
@@ -161,7 +218,7 @@ def main() -> None:
 
     # -- 2. build all kernels at once ----------------------------------------
     t0 = time.time()
-    sources = ("msa_decode", "spa_decode", "bec_decode")
+    sources = ("msa_decode", "spa_decode", "bec_decode", "admm_decode")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(_build.load_library, s) for s in sources]:
             try:
@@ -188,13 +245,19 @@ def main() -> None:
         the LLRs elsewhere."""
         return y if channel == "bec" else CHANNELS[channel].llr(y, param)
 
-    def seeded_llr(code_name, channel, param, batch, seed, codeword=0):
+    def seeded_llr(code_name, channel, param, batch, seed, codeword=0,
+                   llr_domain=False):
+        """A BP decoder's input; with ``llr_domain`` the LLRs on the BEC
+        too (ADMM: the +-1e8 / 0 table)."""
         code, _ = tab(code_name)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed)
         x = torch.full((batch, code.get_n()), codeword, dtype=torch.int32,
                        device="cuda")
-        return soft(channel, CHANNELS[channel].send(x, param, gen), param)
+        y = CHANNELS[channel].send(x, param, gen)
+        if llr_domain:
+            return CHANNELS[channel].llr(y, param)
+        return soft(channel, y, param)
 
     # -- 3. kernels == plain, bit for bit ------------------------------------
     # kernel name -> (its wrapper, its plain version)
@@ -206,26 +269,46 @@ def main() -> None:
                                  spa_kernel.spa_decode_plain),
               "bec_decode": (bec_kernel.bec_spa_decode_cuda,
                              bec_kernel.bec_spa_decode_plain)}
-    # Every kernel has a single-cap entry and a ``caps=`` entry.
+    # Every BP kernel has a single-cap entry and a ``caps=`` entry.
     knames = [k + sfx for k in routes for sfx in ("", "_caps")]
+    # The one ADMM kernel stands for two TPU kernels: the dense-table one
+    # (LDPC(1200,3,6), Hamming) and the factored-table one (margulis).
+    for k in ("admm_decode", "admm_decode_margulis"):
+        routes[k] = (admm_kernel.admm_decode_cuda,
+                     admm_kernel.admm_decode_plain)
+        knames.append(k)
     max_err = dict.fromkeys(knames, 0)
 
-    def check(kname, code_name, channel, param, kw):
+    def admm_kw(code_name, max_iter):
+        return dict(ADMM_KW, max_iter=max_iter,
+                    n_edge=tab(code_name)[0].graph.n_edge)
+
+    def max_abs_diff(outs_a, outs_b):
+        """Largest |a - b| over two tuples of tensors (0 = bit-equal up to
+        the sign of zero)."""
+        return max(float((a - b).abs().max()) for a, b in zip(outs_a, outs_b))
+
+    def check(kname, code_name, channel, param, kw, batch=B_CHECK,
+              codeword=0):
         _, t = tab(code_name)
         cuda_fn, plain_fn = routes[kname]
-        llr = seeded_llr(code_name, channel, param, B_CHECK,
-                         seed=int(param * 1000) + len(code_name))
-        xk, ik = cuda_fn(llr, t, **kw)
-        xp, ip = plain_fn(llr, t, **kw)
+        llr = seeded_llr(code_name, channel, param, batch,
+                         seed=int(param * 1000) + len(code_name),
+                         codeword=codeword,
+                         llr_domain=kname.startswith("admm"))
+        out_k = cuda_fn(llr, t, **kw)
+        out_p = plain_fn(llr, t, **kw)
         torch.cuda.synchronize()
-        err = max(int((xk - xp).abs().max()), int((ik - ip).abs().max()))
+        (xk, ik), (xp, ip) = out_k[:2], out_p[:2]
+        err = max_abs_diff(out_k, out_p)
         desc = " ".join(f"{k}={v}" for k, v in kw.items())
         print(f"check {kname} {code_name} {channel} {param} {desc}: "
-              f"B={B_CHECK} max_abs_err={err} "
+              f"B={batch} max_abs_err={err} "
               f"words_differing={int((xk != xp).any(dim=1).sum())} "
               f"iters_differing={int((ik != ip).sum())} "
               f"mean_iters={float(ik.float().mean()):.3f} "
-              f"wer={float(xk.any(dim=1).float().mean()):.5f}", flush=True)
+              f"wer={float((xk != codeword).any(dim=1).float().mean()):.5f}",
+              flush=True)
         if err:
             fail(f"{kname} kernel != plain on {code_name} {channel} {param} "
                  f"({desc})")
@@ -297,6 +380,18 @@ def main() -> None:
                               inf_policy=policy))
     check_planes("bec_decode", FLAG, "bec", 0.4, {})
 
+    for code_name, channel, param, max_iter, batch in (
+            (FLAG, "biawgn", 2.0, 50, 2048), (FLAG, "biawgn", 3.0, 50, 2048),
+            (FLAG, "bsc", 0.05, 50, 2048), (FLAG, "bec", 0.35, 50, 2048),
+            ("7_4_hamming", "bsc", 0.1, 50, B_STEP),
+            (IREG, "biawgn", 2.0, 50, 1024)):
+        check("admm_decode", code_name, channel, param,
+              admm_kw(code_name, max_iter), batch=batch, codeword=1)
+    check("admm_decode_margulis", "margulis", "biawgn", 2.0,
+          admm_kw("margulis", 100), batch=512, codeword=1)
+    check("admm_decode_margulis", "margulis", "bsc", 0.07,
+          admm_kw("margulis", MAR_CAP), batch=B_MAR_PLAIN, codeword=1)
+
     # -- 4. the main paths through the CLI ------------------------------------
     def attr_counter(fn, attr):
         return (lambda: getattr(fn, attr), lambda: setattr(fn, attr, 0))
@@ -318,6 +413,10 @@ def main() -> None:
                                             "reference"),
         "bec_decode": attr_counter(bec_fn, "launches"),
         "bec_decode_caps": attr_counter(bec_fn, "launches_caps"),
+        # one kernel, one count: a run is booked on the entry it drives
+        "admm_decode": attr_counter(admm_kernel.admm_decode_cuda, "launches"),
+        "admm_decode_margulis": attr_counter(admm_kernel.admm_decode_cuda,
+                                             "launches"),
     }
     launches = dict.fromkeys(counters, 0)
 
@@ -326,37 +425,52 @@ def main() -> None:
         w_r, t_r = ref["wer"][key], ref["tot"][key]
         return (w_o - w_r) / math.sqrt(ac_var(w_o, t_o) + ac_var(w_r, t_r))
 
-    def cli_run(kname, argv, artifact, param):
-        """One CLI run through kernel ``kname``; returns its WER."""
-        read, reset = counters[kname]
+    def cli_run(kname, argv, artifact, param, batch=B_STEP, same_name=False):
+        """One CLI run through kernel ``kname`` (None: a decoder without a
+        kernel); its Saver file must have the artifact's keys, in order
+        (and with ``same_name`` its file name). Returns its WER and the
+        z-score against the artifact."""
+        read, reset = counters[kname] if kname else (lambda: 0, lambda: None)
         with tempfile.TemporaryDirectory() as tmp:
             reset()
             t0 = time.time()
-            res = cli.main(argv + ["--batch", str(B_STEP), "--console",
+            res = cli.main(argv + ["--batch", str(batch), "--console",
                                    "--data_dir", tmp])
             n = read()
             secs = time.time() - t0
             files = glob.glob(os.path.join(tmp, "*.json"))
             if len(files) != 1:
                 fail(f"CLI {' '.join(argv)} wrote {len(files)} Saver files")
+            if same_name and os.path.basename(files[0]) != artifact:
+                fail(f"CLI {' '.join(argv)} wrote {files[0]}, not {artifact}")
             with open(files[0]) as fp:
                 saved = json.load(fp)
-        if n < 1:
-            fail(f"the CLI run {' '.join(argv)} did not launch {kname}")
-        launches[kname] += n
-        if list(saved.keys()) != SAVER_KEYS:
-            fail(f"Saver schema {list(saved.keys())} != {SAVER_KEYS}")
+        if kname:
+            if n < 1:
+                fail(f"the CLI run {' '.join(argv)} did not launch {kname}")
+            launches[kname] += n
         with open(os.path.join(ARTIFACTS, artifact)) as fp:
             ref = json.load(fp)
+        if list(saved.keys()) != list(ref.keys()):
+            fail(f"Saver schema {list(saved.keys())} != {list(ref.keys())}")
         key = str(param)
         w_o, t_o = saved["wer"][key], saved["tot"][key]
         w_r, t_r = ref["wer"][key], ref["tot"][key]
         z = z_score(saved, ref, key)
+        shown = {k: v for k, v in res[param].items() if k != "dec"}
         print(f"cli {' '.join(argv)}: {secs:.3f} s, {kname} launches={n}, "
-              f"result={res[param]}", flush=True)
+              f"result={shown}", flush=True)
         print(f"cli WER at {key}: {w_o:.6f} ({saved['wec'][key]}/{t_o}) vs "
               f"artifact {artifact} {w_r:.6f} ({ref['wec'][key]}/{t_r}): "
               f"z={z:.3f}", flush=True)
+        if "dec" in ref:
+            dec = saved["dec"][key]
+            if list(dec) != ["average", "iter"] or len(dec["iter"]) != 2000 \
+                    or sum(dec["iter"]) != t_o:
+                fail(f"CLI {' '.join(argv)}: the iteration histogram is not "
+                     "the 2000-bin count of every word")
+            print(f"cli mean iterations at {key}: {dec['average']:.3f} vs "
+                  f"artifact {ref['dec'][key]['average']:.3f}", flush=True)
         return w_o, z
 
     _, z = cli_run("msa_decode",
@@ -480,9 +594,147 @@ def main() -> None:
     if n_lines != 40:
         fail(f"campaign REG_BAD --emit printed {n_lines} lines, not 40")
 
+    # ADMM, ML and LP: the MAR goldens' configuration on margulis, and
+    # Hamming(7,4) as the HMG goldens have it.
+    mar_art = "%s-margulis-ADMM-1-100-3.0-1e-05-0-False.json"
+    for channel, param in (("bsc", 0.07), ("bec", 0.425), ("biawgn", 1.75)):
+        _, z = cli_run("admm_decode_margulis",
+                       [channel, "margulis", "ADMM", "--codeword=1",
+                        "--max-iter=0", "--iter-cap", str(MAR_CAP),
+                        "--min-wec", "100", "--params", str(param)],
+                       mar_art % channel, param, batch=B_MAR, same_name=True)
+        if not abs(z) <= 4.0:
+            fail(f"margulis ADMM CLI WER on {channel} at {param} is "
+                 f"|z|={abs(z):.2f} > 4 from the artifact")
+    hmg_art = {"ADMM": "%s-7_4_hamming-ADMM-1-300-3.0-1e-05-50-False.json",
+               "ML": "%s-7_4_hamming-ML-1-300.json",
+               "LP": "%s-7_4_hamming-LP-1-300-10-False.json"}
+    for channel, param in (("bsc", 0.1), ("bec", 0.3), ("biawgn", 3.0)):
+        for dec, extra in (("ADMM", ["--max-iter", "50"]), ("ML", []),
+                           ("LP", [])):
+            _, z = cli_run("admm_decode" if dec == "ADMM" else None,
+                           [channel, "7_4_hamming", dec, "--codeword", "1",
+                            "--min-wec", "300", "--params", str(param)]
+                           + extra, hmg_art[dec] % channel, param,
+                           same_name=True)
+            if not abs(z) <= 4.0:
+                fail(f"Hamming(7,4) {dec} CLI WER on {channel} at {param} "
+                     f"is |z|={abs(z):.2f} > 4 from the artifact")
+    # LDPC(1200,3,6) has no ADMM golden: the schema is margulis', the WER
+    # must be a rate strictly inside (0, 1).
+    read, reset = counters["admm_decode"]
+    with tempfile.TemporaryDirectory() as tmp:
+        reset()
+        res = cli.main(["biawgn", FLAG, "ADMM", "--codeword", "1",
+                        "--max-iter", "50", "--min-wec", "100", "--params",
+                        "2.5", "--batch", str(B_STEP), "--console",
+                        "--data_dir", tmp])
+        n = read()
+        with open(os.path.join(
+                tmp, f"biawgn-{FLAG}-ADMM-1-100-3.0-1e-05-50-False.json")) as fp:
+            saved = json.load(fp)
+    with open(os.path.join(ARTIFACTS, mar_art % "biawgn")) as fp:
+        if list(saved.keys()) != list(json.load(fp).keys()):
+            fail(f"ADMM Saver schema {list(saved.keys())}")
+    print(f"cli biawgn {FLAG} ADMM cap 50 at 2.5 dB: admm_decode launches="
+          f"{n}, WER {res[2.5]['wer']:.6f} ({res[2.5]['wec']}/"
+          f"{res[2.5]['tot']}), mean iterations "
+          f"{res[2.5]['dec']['average']:.3f}", flush=True)
+    if n < 1 or not 0.0 < res[2.5]["wer"] < 1.0:
+        fail("the LDPC(1200,3,6) ADMM CLI run did not launch the kernel or "
+             "gave no rate inside (0, 1)")
+    launches["admm_decode"] += n
+
+    for case, want in (("HMG", 14), ("MAR", 8)):
+        emitted = io.StringIO()
+        with contextlib.redirect_stdout(emitted):
+            campaign.main([case, "--emit"])
+        n_lines = len(emitted.getvalue().splitlines())
+        print(f"campaign {case} --emit: {n_lines} lines", flush=True)
+        if n_lines != want:
+            fail(f"campaign {case} --emit printed {n_lines} lines, not {want}")
+
+    def campaign_run(case, overrides):
+        """Campaign ``case`` whole; every sweep point of a Saver file with
+        a golden of the same name is z-checked against it."""
+        read, reset = counters["admm_decode"]
+        with tempfile.TemporaryDirectory() as tmp:
+            reset()
+            t0 = time.time()
+            runs = campaign.run_campaign(
+                [case], data_dir=tmp, overrides=dict(overrides, log_freq=1e9))
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            n = read()
+            names = sorted(os.listdir(tmp))
+            print(f"campaign {case}: {len(runs)} runs, {len(names)} Saver "
+                  f"files in {secs:.3f} s, admm_decode launches={n} | {card}",
+                  flush=True)
+            if n < 1 or len(names) != len(runs):
+                fail(f"campaign {case}: {len(names)} files of {len(runs)} "
+                     f"runs, {n} ADMM launches")
+            for name in names:
+                golden = os.path.join(ARTIFACTS, name)
+                if not os.path.exists(golden):
+                    print(f"  {name}: no golden", flush=True)
+                    continue
+                with open(os.path.join(tmp, name)) as fp:
+                    saved = json.load(fp)
+                with open(golden) as fp:
+                    ref = json.load(fp)
+                zs = {k: z_score(saved, ref, k) for k in saved["wer"]
+                      if k in ref["wer"]}
+                tie_tail = {k for k in zs if "-LP-" in name
+                            and name.startswith("bsc-") and float(k) <= 0.006}
+                worst = max(zs, key=lambda k: abs(zs[k]))
+                print(f"  {name}: {len(zs)} points, max |z| "
+                      f"{abs(zs[worst]):.3f} at {worst}"
+                      + (f" (tie-break tail {sorted(tie_tail)} not held)"
+                         if tie_tail else ""), flush=True)
+                over = {k: round(zs[k], 3) for k in zs
+                        if abs(zs[k]) > 4.0 and k not in tie_tail}
+                if over:
+                    fail(f"campaign {case}: {name} is |z| > 4 from its "
+                         f"golden at {over}")
+
+    campaign_run("HMG", {})
+    campaign_run("MAR", {"max_words": 301056})
+
     # -- 5. timing ------------------------------------------------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+
+    @contextlib.contextmanager
+    def bracket_counts():
+        """While open, each projection the plain ADMM version makes also
+        records, per word, how many check rows needed the bracket search:
+        the rows whose projection is not their cube-clip. Yields the list
+        of [B] counts, one per iteration."""
+        real = admm_kernel.project_parity_polytope
+        counts = []
+
+        def counting(v, mask):
+            out = real(v, mask=mask)
+            clip = torch.where(mask, v.clamp(0.0, 1.0), 0.0)
+            counts.append((out != clip).any(dim=-1).sum(dim=-1))
+            return out
+
+        admm_kernel.project_parity_polytope = counting
+        try:
+            yield counts
+        finally:
+            admm_kernel.project_parity_polytope = real
+
+    def admm_work(counts, iters, cap):
+        """(updates applied, bracket rows of the words still running),
+        summed over the batch: a word with ``iters`` below the cap made
+        ``iters + 1`` updates, and the plain version goes on projecting a
+        frozen word's rows, which do not count."""
+        updates = iters + (iters < cap)
+        per_iter = torch.stack(counts)                           # [I, B]
+        step_no = torch.arange(len(counts), device=iters.device)
+        running = step_no[:, None] < updates[None, :]
+        return int(updates.sum()), int((per_iter * running).sum())
 
     def time_case(kname, label, code_name, channel, param, kw, codeword,
                   caps=None):
@@ -502,8 +754,8 @@ def main() -> None:
         def step(decode):
             x = torch.full((B_STEP, code.get_n()), codeword,
                            dtype=torch.int32, device="cuda")
-            x_hat, _ = decode(soft(channel, mod.send(x, param, gen), param),
-                              t, **kw)
+            x_hat = decode(soft(channel, mod.send(x, param, gen), param),
+                           t, **kw)[0]
             errs = (x_hat != x).sum(dim=-1)
             return torch.stack([(errs > 0).sum(), errs.sum()])
 
@@ -532,24 +784,37 @@ def main() -> None:
                          codeword=codeword)
         # The timed shape is the main path's: hold the kernel to its plain
         # version there too.
-        xk, ik = cuda_fn(llr, t, **kw)
-        xp, ip = plain_fn(llr, t, **kw)
+        is_admm = kname.startswith("admm")
+        out_k = cuda_fn(llr, t, **kw)
+        with bracket_counts() as counts:
+            out_p = plain_fn(llr, t, **kw)
         torch.cuda.synchronize()
-        err = max(int((xk - xp).abs().max()), int((ik - ip).abs().max()))
+        ik = out_k[1]
+        err = max_abs_diff(out_k, out_p)
         print(f"check {kname} {label}: B={B_STEP} max_abs_err={err}",
               flush=True)
         if err:
             fail(f"{kname} kernel != plain at B={B_STEP} ({label})")
         # The bound of this run's work: bytes in and out once, and the
-        # operations of the iterations these words needed.
-        planes = len(caps) if caps else 1
+        # operations of the iterations these words needed. The ADMM kernel
+        # writes two planes: the decisions and the fractional x.
+        planes = len(caps) if caps else (2 if is_admm else 1)
         n_bytes = B_STEP * (4 * code.get_n() * (1 + planes) + 4)
-        n_ops = (int(ik.sum()) * code.graph.n_edge
-                 * OPS_PER_EDGE_ITER[kname])
+        if is_admm:
+            g = code.graph
+            updates, bracket_rows = admm_work(counts, ik, kw["max_iter"])
+            n_ops = admm_ops(updates, bracket_rows, g.n_edge, g.n_var,
+                             g.max_chk_deg)
+            print(f"work {label}: {updates} updates, {bracket_rows} bracket "
+                  f"rows of {updates * g.n_chk}", flush=True)
+        else:
+            n_ops = (int(ik.sum()) * code.graph.n_edge
+                     * OPS_PER_EDGE_ITER[kname])
         bound = {"bytes": 1e3 * n_bytes / HBM_BYTES_PER_S,
                  "operations": 1e3 * n_ops / F32_OPS_PER_S}
         bound_by = max(bound, key=bound.get)
-        reps = {"kernel": 10 if caps else 20, "plain": 1 if caps else 3}
+        reps = {"kernel": 10 if caps else 20,
+                "plain": 1 if caps or is_admm else 3}
         ms = {"kernel": [], "plain": [], "single": []}
         cws = {"kernel": [], "plain": []}
         for route in ("plain", "kernel", "kernel", "plain"):
@@ -615,13 +880,92 @@ def main() -> None:
     time_case("spa_ref_decode", "spa reference f32 bsc 0.05", FLAG, "bsc",
               0.05, dict(max_iter=10, check_init=True, msg_dtype=f32,
                          inf_policy="reference"), 0)
+    timed["admm_decode"] = time_case(
+        "admm_decode", "admm biawgn 2.5 dB cap 50", FLAG, "biawgn", 2.5,
+        admm_kw(FLAG, 50), 1)
+
+    def time_margulis():
+        """margulis BSC p=0.07, converge mode: the kernel at B=2048, and
+        on the first 128 words of that batch the plain version beside the
+        kernel (where the two are also held equal). ``plain_ms`` is the
+        128-word time as measured: the plain version is bound by launches
+        there, so it is not scaled to the larger batch."""
+        code, t = tab("margulis")
+        g = code.graph
+        kw = admm_kw("margulis", MAR_CAP)
+        llr = seeded_llr("margulis", "bsc", 0.07, B_MAR, seed=3, codeword=1)
+        head = llr[:B_MAR_PLAIN].contiguous()
+        runs = {"kernel": (admm_kernel.admm_decode_cuda, llr),
+                "plain": (admm_kernel.admm_decode_plain, head),
+                "kernel_head": (admm_kernel.admm_decode_cuda, head)}
+
+        def timed_once(fn, inp):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(inp, t, **kw)
+            stop.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(stop), out
+
+        admm_kernel.admm_decode_cuda(head, t, **kw)       # warm-up
+        ms = {route: [] for route in runs}
+        out = {}
+        with bracket_counts() as counts:
+            out["plain"] = timed_once(*runs["plain"])[1]    # counted, not timed
+        for route in ("plain", "kernel", "kernel_head", "kernel",
+                      "kernel_head", "plain"):
+            dt, out[route] = timed_once(*runs[route])
+            ms[route].append(dt)
+            print(f"timing admm margulis bsc 0.07 converge {route}: decode "
+                  f"{dt:.4f} ms at B={runs[route][1].shape[0]} | {card}",
+                  flush=True)
+        for route in ("kernel", "kernel_head"):
+            if max_abs_diff([o[:B_MAR_PLAIN] for o in out[route]],
+                            out["plain"]):
+                fail("admm_decode kernel != plain on the first words of "
+                     "the margulis timing batch")
+        iters = out["kernel"][1]
+        updates = int((iters + (iters < MAR_CAP)).sum())
+        # The share of rows that need the bracket search, as counted on
+        # the plain version's run over the first words.
+        head_updates, head_rows = admm_work(counts, out["plain"][1], MAR_CAP)
+        share = head_rows / (head_updates * g.n_chk)
+        n_ops = admm_ops(updates, share * updates * g.n_chk, g.n_edge,
+                         g.n_var, g.max_chk_deg)
+        n_bytes = B_MAR * (4 * g.n_var * 3 + 4)
+        bound = {"bytes": 1e3 * n_bytes / HBM_BYTES_PER_S,
+                 "operations": 1e3 * n_ops / F32_OPS_PER_S}
+        bound_by = max(bound, key=bound.get)
+        best = {route: min(v) for route, v in ms.items()}
+        it_f = iters.float()
+        print(f"timing admm margulis bsc 0.07 converge: decode ms kernel "
+              f"{best['kernel']:.4f} at B={B_MAR}; at B={B_MAR_PLAIN} kernel "
+              f"{best['kernel_head']:.4f} vs plain {best['plain']:.4f}; "
+              f"iterations mean {float(it_f.mean()):.3f} median "
+              f"{float(it_f.median()):.1f}, at the bound of {MAR_CAP} "
+              f"{float((iters >= MAR_CAP).float().mean()):.4f} of words, wer "
+              f"{float((out['kernel'][0] != 1).any(dim=1).float().mean()):.5f}"
+              f"; bracket rows {share:.4f} of rows; bound "
+              f"{bound[bound_by]:.4f} ms by {bound_by} (bytes "
+              f"{bound['bytes']:.4f} ms, operations "
+              f"{bound['operations']:.4f} ms) | {card}", flush=True)
+        return {"ms": best["kernel"], "batch": B_MAR,
+                "plain_ms": best["plain"], "plain_batch": B_MAR_PLAIN,
+                "ms_at_plain_batch": best["kernel_head"],
+                "bound_ms": bound[bound_by], "bound_by": bound_by,
+                "library_ms": None}
+
+    timed["admm_decode_margulis"] = time_margulis()
 
     csrc = "ldpc_decoders_tpu_torch/csrc/"
     pallas = "ldpc_decoders_tpu/ops/pallas_bp.py:"
     sources = {"msa_decode": ("msa_decode.cu", "339"),
                "spa_decode": ("spa_decode.cu", "710"),
                "spa_ref_decode": ("spa_decode.cu", "838"),
-               "bec_decode": ("bec_decode.cu", "565")}
+               "bec_decode": ("bec_decode.cu", "565"),
+               "admm_decode": ("admm_decode.cu", "1172"),
+               "admm_decode_margulis": ("admm_decode.cu", "1189")}
     lines = []
     for k in knames:
         if launches[k] < 1:

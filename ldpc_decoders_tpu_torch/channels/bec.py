@@ -6,7 +6,8 @@ erasure is symbol 2. SPA and MSA are both the ternary-message erasure SPA
 (the reference aliases them on this channel), which decodes the symbols
 themselves, not an LLR. ``llr`` is the "safe infinity" table (+-1e8 for
 known symbols, 0 for erasures) that the LLR-domain decoders of this
-channel (LP, ADMM: not ported yet) take.
+channel (LP, ADMM) take; ML picks uniformly among the codewords compatible
+with the non-erased positions.
 """
 
 from __future__ import annotations
@@ -15,7 +16,15 @@ from typing import Optional
 
 import torch
 
+from ldpc_decoders_tpu_torch.channels.bsc import (
+    _HostLLRWrapped,
+    _LLRWrapped,
+    _MLWrapped,
+)
+from ldpc_decoders_tpu_torch.decoders.admm import ADMMDecoder
 from ldpc_decoders_tpu_torch.decoders.bec_spa import ERASURE, BECSPADecoder
+from ldpc_decoders_tpu_torch.decoders.lp import LPDecoder
+from ldpc_decoders_tpu_torch.decoders.ml import MLBEC
 
 SAFE_INF = 1e8
 
@@ -43,7 +52,7 @@ class _TernarySPA:
         self.dec = BECSPADecoder(code.graph, device=device, **kw)
         self.id_keys = self.dec.id_keys
 
-    def decode(self, y, p):
+    def decode(self, y, p, generator=None):
         x_hat, iters = self.dec.decode(y)
         return x_hat, {"iters": iters}
 
@@ -51,4 +60,17 @@ class _TernarySPA:
 SPA = _TernarySPA
 MSA = _TernarySPA   # the reference aliases MSA = SPA on the BEC
 
-DECODERS = {"SPA": SPA, "MSA": MSA}
+
+def ML(code, device=None, **kw):
+    return _MLWrapped(MLBEC, code, device=device)
+
+
+def LP(code, device=None, **kw):
+    return _HostLLRWrapped(LPDecoder(code.graph, **kw), llr)
+
+
+def ADMM(code, device=None, **kw):
+    return _LLRWrapped(ADMMDecoder(code.graph, device=device, **kw), llr)
+
+
+DECODERS = {"ML": ML, "SPA": SPA, "MSA": MSA, "LP": LP, "ADMM": ADMM}

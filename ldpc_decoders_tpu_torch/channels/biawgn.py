@@ -12,7 +12,15 @@ from typing import Optional
 
 import torch
 
+from ldpc_decoders_tpu_torch.channels.bsc import (
+    _HostLLRWrapped,
+    _LLRWrapped,
+    _MLWrapped,
+)
+from ldpc_decoders_tpu_torch.decoders.admm import ADMMDecoder
 from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
+from ldpc_decoders_tpu_torch.decoders.lp import LPDecoder
+from ldpc_decoders_tpu_torch.decoders.ml import MLBiAWGN
 
 
 def noise_var(snr_db):
@@ -42,29 +50,29 @@ def llr(y: torch.Tensor, snr_db) -> torch.Tensor:
     return -2.0 * y / _f32(noise_var(snr_db), y)
 
 
-class _AWGNLLRWrapped:
-    """Adapts an LLR-domain decoder to channel outputs y."""
-
-    def __init__(self, dec):
-        self.dec = dec
-        self.id_keys = dec.id_keys
-
-    def decode(self, y, snr_db):
-        x_hat, iters = self.dec.decode(llr(y, snr_db))
-        return x_hat, {"iters": iters}
-
-
 # check_init=False: the reference initializes x_hat to the real-valued y,
 # which never satisfies the syndrome, so biAWGN BP always runs at least
 # one iteration.
 def SPA(code, device=None, **kw):
-    return _AWGNLLRWrapped(BPDecoder(code.graph, "SPA", check_init=False,
-                                     device=device, **kw))
+    return _LLRWrapped(BPDecoder(code.graph, "SPA", check_init=False,
+                                 device=device, **kw), llr)
 
 
 def MSA(code, device=None, **kw):
-    return _AWGNLLRWrapped(BPDecoder(code.graph, "MSA", check_init=False,
-                                     device=device, **kw))
+    return _LLRWrapped(BPDecoder(code.graph, "MSA", check_init=False,
+                                 device=device, **kw), llr)
 
 
-DECODERS = {"SPA": SPA, "MSA": MSA}
+def ML(code, device=None, **kw):
+    return _MLWrapped(MLBiAWGN, code, device=device)
+
+
+def LP(code, device=None, **kw):
+    return _HostLLRWrapped(LPDecoder(code.graph, **kw), llr)
+
+
+def ADMM(code, device=None, **kw):
+    return _LLRWrapped(ADMMDecoder(code.graph, device=device, **kw), llr)
+
+
+DECODERS = {"ML": ML, "SPA": SPA, "MSA": MSA, "LP": LP, "ADMM": ADMM}

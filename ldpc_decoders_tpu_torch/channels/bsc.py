@@ -13,7 +13,10 @@ from typing import Optional
 
 import torch
 
+from ldpc_decoders_tpu_torch.decoders.admm import ADMMDecoder
 from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
+from ldpc_decoders_tpu_torch.decoders.lp import LPDecoder
+from ldpc_decoders_tpu_torch.decoders.ml import MLBSC
 
 
 def send(x: torch.Tensor, p,
@@ -32,15 +35,39 @@ def llr(y: torch.Tensor, p) -> torch.Tensor:
 
 
 class _LLRWrapped:
-    """Adapts an LLR-domain decoder to channel symbols."""
+    """Adapts an LLR-domain decoder to channel symbols. ``llr_fn`` is the
+    channel's LLR map (this module's unless a channel passes its own)."""
 
-    def __init__(self, dec):
+    def __init__(self, dec, llr_fn=None):
         self.dec = dec
         self.id_keys = dec.id_keys
+        self.llr = llr_fn or llr
 
-    def decode(self, y, p):
-        x_hat, iters = self.dec.decode(llr(y, p))
+    def decode(self, y, p, generator=None):
+        x_hat, iters = self.dec.decode(self.llr(y, p))
         return x_hat, {"iters": iters}
+
+
+class _HostLLRWrapped(_LLRWrapped):
+    """Adapts a host-side LLR decoder (LP: numpy and scipy, in the JAX
+    package too; it says so with ``host_only``): LLRs on y's device, the
+    decode on the host."""
+
+    def decode(self, y, p, generator=None):
+        gamma = self.llr(y, p).cpu().numpy()
+        return self.dec.decode_batch(gamma), {}
+
+
+class _MLWrapped:
+    """Adapts a codebook ML decoder (``cls``) to the channel's call shape."""
+
+    id_keys: list = []
+
+    def __init__(self, cls, code, device=None):
+        self.dec = cls(code, device=device)
+
+    def decode(self, y, p, generator=None):
+        return self.dec.decode(y, p, generator), {}
 
 
 def SPA(code, device=None, **kw):
@@ -51,4 +78,16 @@ def MSA(code, device=None, **kw):
     return _LLRWrapped(BPDecoder(code.graph, "MSA", device=device, **kw))
 
 
-DECODERS = {"SPA": SPA, "MSA": MSA}
+def ML(code, device=None, **kw):
+    return _MLWrapped(MLBSC, code, device=device)
+
+
+def LP(code, device=None, **kw):
+    return _HostLLRWrapped(LPDecoder(code.graph, **kw))
+
+
+def ADMM(code, device=None, **kw):
+    return _LLRWrapped(ADMMDecoder(code.graph, device=device, **kw))
+
+
+DECODERS = {"ML": ML, "SPA": SPA, "MSA": MSA, "LP": LP, "ADMM": ADMM}

@@ -3,9 +3,13 @@
 
 Each host-loop tick dispatches one super-batch chunk (sample -> transmit
 -> decode -> tally) on the device. A chunk returns ONE packed ``[wec,
-bec]`` tally; on a CUDA device it is copied without blocking into pinned
-host memory behind a CUDA event at dispatch time, so the host waits only
-when it consumes that chunk, pipeline-depth chunks later. The reference's
+bec]`` tally, extended by the iteration histogram (length
+``ITER_HIST_LEN``) for decoders that track it (ADMM); on a CUDA device it
+is copied without blocking into pinned host memory behind a CUDA event at
+dispatch time, so the host waits only when it consumes that chunk,
+pipeline-depth chunks later. A host decoder (LP) samples on the device,
+decodes on the host and returns the same packed tally, at pipeline depth
+1. The reference's
 ``while wec < min_wec`` termination is a host loop over chunks whose
 stopping rule reads only consumed tallies, and every dispatched chunk is
 consumed, so the min-wec estimator stays unbiased.
@@ -30,6 +34,8 @@ from ldpc_decoders_tpu_torch.codes import get_code
 from ldpc_decoders_tpu_torch.harness.saver import Saver
 from ldpc_decoders_tpu_torch.utils.profiler import LoopProfiler
 
+ITER_HIST_LEN = 2000    # iteration counts above it clip to the last bin
+
 
 @dataclasses.dataclass
 class RunConfig:
@@ -40,6 +46,9 @@ class RunConfig:
     codeword: int = 0          # 0 / 1 / -1 = random codebook row
     min_wec: int = 100
     max_iter: int = 10
+    mu: float = 3.0            # ADMM penalty
+    eps: float = 1e-5          # ADMM convergence tolerance
+    allow_pseudo: bool = False  # LP/ADMM: keep fractional pseudo-codewords
     iter_cap: int = 2000
     batch: int = 4096          # codewords per chunk
     seed: int = 0
@@ -63,7 +72,8 @@ class RunConfig:
     device: str = "cuda"
 
     def decoder_kwargs(self) -> dict:
-        return dict(max_iter=self.max_iter, iter_cap=self.iter_cap,
+        return dict(max_iter=self.max_iter, mu=self.mu, eps=self.eps,
+                    allow_pseudo=self.allow_pseudo, iter_cap=self.iter_cap,
                     msg_dtype=self.msg_dtype, inf_policy=self.inf_policy,
                     device=self.device)
 
@@ -83,6 +93,9 @@ class MonteCarloRunner:
                                "plain PyTorch route)")
         self.code = get_code(cfg.code)
         self.dec = self._make_decoder()
+        inner = getattr(self.dec, "dec", None)
+        self.host_only = getattr(inner, "host_only", False)
+        self.track_hist = getattr(inner, "track_iter_hist", False)
         if cfg.codeword == -1:
             if self.code.cb is None:
                 raise ValueError("codeword -1 needs a code with a generator "
@@ -122,15 +135,38 @@ class MonteCarloRunner:
                           dtype=torch.int32, device=self.device)
 
     def _chunk(self, param, gen: torch.Generator) -> torch.Tensor:
-        """One super-batch -> the packed ``[wec, bec]`` tally, on device."""
+        """One super-batch -> the packed ``[wec, bec]`` tally (plus the
+        iteration histogram for decoders that track it), on device."""
         x = self._sample_x(gen, self.cfg.batch)
         y = self.mod.send(x, param, gen)
-        x_hat, _ = self.dec.decode(y, param)
+        x_hat, aux = self.dec.decode(y, param, gen)
         errs = (x_hat != x).sum(dim=-1)
-        return torch.stack([(errs > 0).sum(), errs.sum()])
+        tally = torch.stack([(errs > 0).sum(), errs.sum()])
+        if self.track_hist:
+            # index_add_ into a fixed-length vector: torch.bincount would
+            # synchronize to size its output.
+            bins = aux["iters"].clamp(0, ITER_HIST_LEN - 1).long()
+            hist = torch.zeros(ITER_HIST_LEN, dtype=tally.dtype,
+                               device=tally.device)
+            hist.index_add_(0, bins, torch.ones_like(bins))
+            tally = torch.cat([tally, hist])
+        return tally
+
+    def _host_chunk(self, param, gen: torch.Generator) -> torch.Tensor:
+        """Host decoders (LP): sample on the device, decode on the host.
+        Returns the same packed ``[wec, bec]`` tally as the device chunks,
+        so ``consume`` does not care about the route."""
+        x = self._sample_x(gen, self.cfg.batch)
+        y = self.mod.send(x, param, gen)
+        x_hat, _ = self.dec.decode(y, param, gen)
+        x = x.cpu().numpy()
+        errs = (x_hat != x.astype(x_hat.dtype)).sum(axis=-1)
+        return torch.tensor([(errs > 0).sum(), errs.sum()], dtype=torch.int64)
 
     def _dispatch(self, param, gen: torch.Generator):
         """Enqueue a chunk; returns (host tally, CUDA event or None)."""
+        if self.host_only:
+            return self._host_chunk(param, gen), None
         tally = self._chunk(param, gen)
         if not tally.is_cuda:
             return tally, None
@@ -150,6 +186,7 @@ class MonteCarloRunner:
     def run_param(self, param: float, gen: torch.Generator) -> OrderedDict:
         cfg = self.cfg
         tot = wec = bec = 0
+        hist = np.zeros(ITER_HIST_LEN, dtype=np.int64)
         t_start = t_log = time.time()
         # Throughput counts from after the first chunk lands (kernel
         # build and warm-up excluded).
@@ -164,6 +201,9 @@ class MonteCarloRunner:
             vals = OrderedDict([("tot", int(tot)), ("wec", int(wec)),
                                 ("wer", float(wer)), ("bec", int(bec)),
                                 ("ber", float(ber))])
+            if self.track_hist and hist.sum():
+                avg = float(hist @ np.arange(ITER_HIST_LEN) / hist.sum())
+                vals["dec"] = {"average": avg, "iter": hist.tolist()}
             if t_warm is not None and tot > tot_warm:
                 wps = (tot - tot_warm) / (time.time() - t_warm)
             else:
@@ -181,20 +221,22 @@ class MonteCarloRunner:
                 self.saver.add(param, v)
 
         def consume():
-            nonlocal tot, wec, bec, t_warm, tot_warm, consumed
+            nonlocal tot, wec, bec, hist, t_warm, tot_warm, consumed
             host, event = pending.popleft()
             if event is not None:
                 event.synchronize()
-            w, b = host.tolist()
+            arr = host.numpy()
             consumed += 1
-            wec += int(w)
-            bec += int(b)
+            wec += int(arr[0])
+            bec += int(arr[1])
             tot += cfg.batch
+            if self.track_hist:
+                hist += arr[2:]
             if t_warm is None:
                 t_warm = time.time()
                 tot_warm = tot
 
-        depth = max(1, int(cfg.pipeline))
+        depth = 1 if self.host_only else max(1, int(cfg.pipeline))
 
         def effective_depth(tick: int) -> int:
             """Pipeline-fill target: a 1-2-4-... ramp, capped (once errors

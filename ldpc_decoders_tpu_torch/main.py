@@ -6,6 +6,10 @@ accepted; set to anything but their default they stop with an error that
 names the ROADMAP item still to port. ``--bf16`` selects the bf16-message
 kernel; without it the f32 kernel runs (nothing is downgraded silently,
 unlike the JAX harness, which moves f32 biAWGN BP to its bf16 kernel).
+``--presort`` is accepted for argv compatibility and has no effect: it
+aligns the JAX ADMM kernel's per-block exit with per-word cost, and the
+CUDA kernel's exit is per word. ``--iter-cap`` bounds a run to convergence
+(``--max-iter <= 0``), as ``RunConfig.iter_cap`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,15 +25,13 @@ from ldpc_decoders_tpu_torch.utils.file import make_dir_if_not_exists, resolve_d
 
 # Flags of the JAX CLI whose features are not ported -> ROADMAP item.
 _NOT_PORTED = {
-    "--mu": "A.9 (ADMM)", "--eps": "A.9 (ADMM)",
-    "--allow-pseudo": "A.9 (ADMM)", "--presort": "A.9 (ADMM)",
     "--layers": "A.13 (ADMMA)", "--train": "A.13 (ADMMA)",
     "--apprx": "A.13 (ADMMA)", "--cache_dir": "A.13 (ADMMA)",
     "--plots_dir": "A.16 (plots)", "--mesh": "A.15 (multi-device)",
     "--mesh-code": "A.15 (edge-sharded BP)",
     "--kernel": "A.4 (the port has one route per device)",
 }
-_DECODER_ITEM = {"ML": "A.7", "LP": "A.10", "ADMM": "A.9", "ADMMA": "A.13"}
+_DECODER_ITEM = {"ADMMA": "A.13"}
 
 
 def bind_parser_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -66,6 +68,8 @@ def setup_parser() -> argparse.ArgumentParser:
                         help="channel parameter sweep values")
     parser.add_argument("--max-iter", type=int, default=10,
                         help="max iterations (<=0: run to convergence)")
+    parser.add_argument("--iter-cap", type=int, default=2000,
+                        help="safety bound on a run to convergence")
     parser.add_argument("--mu", type=float, default=3.0, help="ADMM mu")
     parser.add_argument("--eps", type=float, default=1e-5, help="ADMM eps")
     parser.add_argument("--allow-pseudo", action="store_true",
@@ -107,7 +111,10 @@ def setup_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile", action="store_true",
                         help="log per-section LoopProfiler timings")
     parser.add_argument("--presort", choices=["auto", "on", "off"],
-                        default="auto", help="ADMM probe-and-sort (not ported)")
+                        default="auto",
+                        help="the JAX ADMM kernel's probe-and-sort; accepted "
+                             "and without effect (the CUDA kernel exits per "
+                             "word)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (the CUDA kernel) or cpu "
                              "(the plain PyTorch version)")
@@ -142,7 +149,9 @@ def main(argv=None) -> dict:
     cfg = RunConfig(
         channel=args.channel, code=args.code, decoder=args.decoder,
         params=args.params, codeword=args.codeword, min_wec=args.min_wec,
-        max_iter=args.max_iter, batch=args.batch, seed=args.seed,
+        max_iter=args.max_iter, mu=args.mu, eps=args.eps,
+        allow_pseudo=args.allow_pseudo, iter_cap=args.iter_cap,
+        batch=args.batch, seed=args.seed,
         log_freq=args.log_freq, max_words=args.max_words,
         data_dir=args.data_dir, profile=args.profile,
         msg_dtype="bfloat16" if args.bf16 else "float32",

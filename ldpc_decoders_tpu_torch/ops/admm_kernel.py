@@ -1,0 +1,208 @@
+"""Whole-loop ADMM LP decode: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+``admm_decode`` picks the route by the device of ``llr``: a CPU tensor
+runs ``admm_decode_plain``; a CUDA tensor launches the hand-written kernel
+``csrc/admm_decode.cu`` (the port of both ADMM kernels of
+``ldpc_decoders_tpu/ops/pallas_bp.py``, ``_admm_kernel`` and
+``_admm_kernel_fac``) or raises. There is no fallback from the kernel to
+the plain version.
+
+Semantics (the JAX package's ``decoders/admm.py``), per codeword, with
+gamma the LLRs, z and lam one value per edge slot and x per variable,
+starting from z = 0.5, lam = 0:
+
+- x-update: x = clip((sum over the variable's slots of (z - lam/mu)
+  - gamma/mu) / degree, 0, 1), each variable divided by its OWN degree;
+- z-update: z_new = the projection of x_e + lam/mu onto the parity
+  polytope, per check row, x_e being x gathered to the row's slots
+  (``ops/projection.py``; padded slots stay 0);
+- dual: lam += mu * (x_e - z_new);
+- the word has converged when ||x_e - z_new||^2 < eps^2 * nnz(H) and
+  ||z - z_new||^2 < eps^2 * nnz(H); it is then frozen (the converging
+  iteration's x, z and lam are kept);
+- ``iters`` follows the reference's histogram: a word that converged at
+  its k-th update records k - 1, a word stopped by ``max_iter`` records
+  ``max_iter``.
+
+The order of the float32 arithmetic is fixed, the same here and in the
+kernel, so the two agree bit for bit on the card:
+
+- lam/mu and gamma/mu are products with 1/mu, rounded to float32 once
+  (the JAX Pallas kernel's form; its gather route divides by mu instead,
+  which costs the CUDA kernel a quarter of its time); every product, sum
+  and quotient is rounded on its own (no fused multiply-add);
+- the x-update adds a variable's slots in slot order starting from 0,
+  subtracts gamma/mu last, then divides by the degree (the gather route's
+  order; the Pallas kernel starts from -gamma/mu);
+- each squared norm is summed as: a check row's slots in slot order; then
+  check c goes to lane c mod 256, a lane adding its checks in ascending
+  order; then the 256 lanes by halving within each group of 32 (strides
+  16, 8, 4, 2, 1) and the 8 group sums by halving (strides 4, 2, 1). In
+  the kernel a lane is a thread, a group a warp.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ldpc_decoders_tpu_torch.ops._build import load_library
+from ldpc_decoders_tpu_torch.ops.graph import BPTables
+from ldpc_decoders_tpu_torch.ops.projection import (
+    fold_slots,
+    project_parity_polytope,
+)
+
+LANES = 256             # CUDA threads per codeword (one CTA per word)
+WARP = 32
+MAX_CHK_DEG = 8         # check rows wider than this are refused (kMaxD)
+
+
+def _inv_mu(mu: float) -> float:
+    """1/mu, rounded to float32 once."""
+    return float(np.float32(1.0) / np.float32(mu))
+
+
+def _threshold(eps: float, n_edge: int) -> float:
+    """eps^2 * nnz(H), rounded to float32 once."""
+    return float(np.float32(float(eps) ** 2 * int(n_edge)))
+
+
+def word_sum(rows: torch.Tensor) -> torch.Tensor:
+    """[B, C] per-check values -> [B], in the fixed order of the module
+    docstring (lanes, then halvings)."""
+    B, C = rows.shape
+    per_lane = -(-C // LANES)
+    if per_lane * LANES != C:
+        rows = torch.cat([rows, rows.new_zeros(B, per_lane * LANES - C)],
+                         dim=1)
+    rows = rows.reshape(B, per_lane, LANES)
+    acc = rows[:, 0]
+    for r in range(1, per_lane):
+        acc = acc + rows[:, r]
+    acc = acc.reshape(B, LANES // WARP, WARP)
+    for s in (16, 8, 4, 2, 1):
+        acc = acc[..., :s] + acc[..., s:2 * s]
+    acc = acc[..., 0]
+    for s in (4, 2, 1):
+        acc = acc[:, :s] + acc[:, s:2 * s]
+    return acc[:, 0]
+
+
+def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
+                      eps: float, max_iter: int, n_edge: int) -> tuple:
+    """The plain PyTorch version: llr [B, V] f32 -> (x_hat [B, V] int32,
+    iters [B] int32, x [B, V] f32, the fractional solution). Batched over
+    [B, C, Dc] tensors, words frozen with ``torch.where``; the host loop
+    stops when every word is done."""
+    f32 = torch.float32
+    dev = llr.device
+    B, V = llr.shape
+    C, Dc = t.chk_var.shape
+    Dv = t.var_slot.shape[1]
+    mu_t = torch.full((), float(mu), dtype=f32, device=dev)
+    inv_mu = torch.full((), _inv_mu(mu), dtype=f32, device=dev)
+    thresh = torch.full((), _threshold(eps, n_edge), dtype=f32, device=dev)
+    var_deg = t.vmask.sum(dim=-1).to(f32)
+    g = llr.to(f32) * inv_mu
+    z = torch.where(t.cmask, 0.5, 0.0).to(f32).expand(B, C, Dc).contiguous()
+    lam = torch.zeros((B, C, Dc), dtype=f32, device=dev)
+    x = torch.zeros((B, V), dtype=f32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    updates = torch.zeros(B, dtype=torch.int32, device=dev)
+    it = 0
+    while it < max_iter and not bool(done.all()):
+        lam_mu = lam * inv_mu
+        u = (z - lam_mu).reshape(B, C * Dc)
+        acc = torch.zeros((B, V), dtype=f32, device=dev)
+        for s in range(Dv):
+            acc = acc + torch.where(t.vmask[:, s], u[:, t.var_slot[:, s]],
+                                    0.0)
+        x_new = ((acc - g) / var_deg).clamp(0.0, 1.0)
+        x_e = torch.where(t.cmask, x_new[:, t.chk_var], 0.0)
+        z_new = project_parity_polytope(x_e + lam_mu, mask=t.cmask)
+        e1 = x_e - z_new
+        e2 = z - z_new
+        lam_new = lam + mu_t * e1
+        d1 = word_sum(fold_slots(e1 * e1))
+        d2 = word_sum(fold_slots(e2 * e2))
+        close = (d1 < thresh) & (d2 < thresh)
+        active = ~done
+        x = torch.where(active[:, None], x_new, x)
+        z = torch.where(active[:, None, None], z_new, z)
+        lam = torch.where(active[:, None, None], lam_new, lam)
+        updates += active.to(torch.int32)
+        done = done | (active & close)
+        it += 1
+    iters = torch.where(done, updates - 1, updates)
+    return (x > 0.5).to(torch.int32), iters, x
+
+
+def admm_decode_cuda(llr: torch.Tensor, t: BPTables, *, mu: float,
+                     eps: float, max_iter: int, n_edge: int) -> tuple:
+    """Launch ``csrc/admm_decode.cu`` on the current stream (no sync).
+    Counts launches in ``admm_decode_cuda.launches``."""
+    if not llr.is_cuda:
+        raise ValueError("admm_decode_cuda needs a CUDA tensor")
+    if llr.dtype != torch.float32 or llr.dim() != 2 \
+            or not llr.is_contiguous():
+        raise ValueError("llr must be a contiguous [B, V] float32 tensor")
+    Dc, C = t.k_chk_var.shape
+    Dv, V = t.k_var_slot.shape
+    if llr.shape[1] != V:
+        raise ValueError(f"llr has {llr.shape[1]} variables, graph has {V}")
+    if Dc > MAX_CHK_DEG:
+        raise ValueError(f"check degree {Dc} > {MAX_CHK_DEG} (the kernel "
+                         "keeps a check row in registers)")
+    if max_iter < 0:
+        raise ValueError("max_iter must be >= 0")
+    for tab in (t.k_chk_var, t.k_var_slot):
+        if (tab.device != llr.device or tab.dtype != torch.int32
+                or not tab.is_contiguous()):
+            raise ValueError("kernel tables must be contiguous int32 on the "
+                             "device of llr")
+    lib = _kernel_library()
+    B = llr.shape[0]
+    x_hat = torch.empty((B, V), dtype=torch.int32, device=llr.device)
+    iters = torch.empty((B,), dtype=torch.int32, device=llr.device)
+    x = torch.empty((B, V), dtype=torch.float32, device=llr.device)
+    stream = torch.cuda.current_stream(llr.device).cuda_stream
+    with torch.cuda.device(llr.device):
+        rc = lib.admm_decode_launch(
+            llr.data_ptr(), t.k_chk_var.data_ptr(), t.k_var_slot.data_ptr(),
+            x_hat.data_ptr(), iters.data_ptr(), x.data_ptr(), B, C, V, Dc,
+            Dv, float(mu), _inv_mu(mu), _threshold(eps, n_edge),
+            int(max_iter), stream)
+    if rc != 0:
+        raise RuntimeError("admm_decode kernel launch failed: "
+                           + lib.admm_decode_error_string(rc).decode())
+    admm_decode_cuda.launches += 1
+    return x_hat, iters, x
+
+
+admm_decode_cuda.launches = 0
+
+
+def _kernel_library() -> ctypes.CDLL:
+    lib = load_library("admm_decode")
+    if lib.admm_decode_launch.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.admm_decode_launch.argtypes = [p] * 6 + [i] * 5 + [f, f, f, i, p]
+        lib.admm_decode_launch.restype = i
+        lib.admm_decode_error_string.argtypes = [i]
+        lib.admm_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def admm_decode(llr: torch.Tensor, t: BPTables, *, mu: float, eps: float,
+                max_iter: int, n_edge: int) -> tuple:
+    """Route by device: CPU -> plain version, CUDA -> kernel (or raise)."""
+    kw = dict(mu=mu, eps=eps, max_iter=max_iter, n_edge=n_edge)
+    if llr.is_cuda:
+        return admm_decode_cuda(llr, t, **kw)
+    if llr.device.type == "cpu":
+        return admm_decode_plain(llr, t, **kw)
+    raise ValueError(f"no ADMM route for device {llr.device}")

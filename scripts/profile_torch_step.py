@@ -1,16 +1,19 @@
 """Where the time of the port's Monte-Carlo step goes, on one CUDA device.
 
-    python scripts/profile_torch_step.py [--step msa|bec|caps]
+    python scripts/profile_torch_step.py [--step msa|bec|caps|admm|admm_mar]
         [--batch 16384] [--out report.json]
     python scripts/profile_torch_step.py --campaign REG_BAD [--out report.json]
 
-The step, all on LDPC(1200,3,6):
+The step, on LDPC(1200,3,6) unless it names another code:
 
 - ``msa`` (default): biAWGN min-sum bf16 at 2.5 and 3.0 dB;
 - ``bec``: the erasure step (BEC, ternary erasure SPA, cap 10) at p=0.375
   and 0.4;
 - ``caps``: the multi-cap step of the iteration-cap sweep (biAWGN min-sum
-  bf16 at 2.0 dB, REG_BAD's labels 0,1,2,3,6,10,40,100 from one decode).
+  bf16 at 2.0 dB, REG_BAD's labels 0,1,2,3,6,10,40,100 from one decode);
+- ``admm``: ADMM LP decoding, biAWGN at 2.5 dB, at most 50 iterations;
+- ``admm_mar``: ADMM on margulis in converge mode (bound 8000), BSC at
+  p=0.07 and 0.06, the MAR goldens' configuration (use ``--batch 2048``).
 
 For each point:
 
@@ -20,7 +23,7 @@ For each point:
 2. the runner end to end (one packed tally per chunk): ``words_per_sec``
    over a fixed number of words;
 3. the decode kernel alone (CUDA events) at 128, 256 and 512 threads per
-   codeword.
+   codeword (the ADMM kernel has a fixed 256: its time once).
 
 With ``--campaign`` the script instead runs that whole campaign case once
 (``campaign.run_campaign``, its own batch and ``min_wec``) after building
@@ -70,6 +73,11 @@ STEPS = {
     "bec": (dict(channel="bec", decoder="SPA", codeword=0), (0.375, 0.4),
             None, bec_kernel),
     "caps": (_MSA, (2.0,), [0, 1, 2, 3, 6, 10, 40, 100], msa_kernel),
+    "admm": (dict(channel="biawgn", decoder="ADMM", codeword=1, max_iter=50),
+             (2.5,), None, None),
+    "admm_mar": (dict(channel="bsc", decoder="ADMM", codeword=1, max_iter=0,
+                      iter_cap=8000, code="margulis"), (0.07, 0.06), None,
+                 None),
 }
 
 
@@ -83,7 +91,7 @@ def campaign_report(case: str, card: str) -> dict:
     """Run campaign ``case`` once; wall time and z per Saver file and sweep
     point against the golden of the same name."""
     t0 = time.perf_counter()
-    for src in ("msa_decode", "spa_decode", "bec_decode"):
+    for src in ("msa_decode", "spa_decode", "bec_decode", "admm_decode"):
         _build.load_library(src)
     build_s = time.perf_counter() - t0
     report = {"card": card, "campaign": case, "build_s": build_s, "files": {}}
@@ -145,9 +153,10 @@ def main() -> None:
               "points": {}}
     B = args.batch
     cfg_kw, points, labels, kernel_mod = STEPS[args.step]
+    cfg_kw = dict({"code": "1200_3_6_ldpc"}, **cfg_kw)
     unit = "dB" if cfg_kw["channel"] == "biawgn" else "p"
     for snr in points:
-        cfg = RunConfig(code="1200_3_6_ldpc", params=[snr],
+        cfg = RunConfig(params=[snr],
                         min_wec=10 ** 12, batch=B, max_words=B * args.chunks,
                         device="cuda", log_freq=1e9, **cfg_kw)
         runner = (CapSweepRunner(cfg, labels) if labels
@@ -194,8 +203,8 @@ def main() -> None:
               f"{res['wer']:.6f}, {res['words_per_sec']:.1f} cw/s | {card}")
 
         mod = CHANNELS[cfg.channel]
-        x = torch.full((B, 1200), cfg.codeword, dtype=torch.int32,
-                       device="cuda")
+        x = torch.full((B, runner.code.get_n()), cfg.codeword,
+                       dtype=torch.int32, device="cuda")
         y = mod.send(x, snr, gen)
         inp = y if cfg.channel == "bec" else mod.llr(y, snr)
         if labels:
@@ -204,8 +213,9 @@ def main() -> None:
         else:
             decode = lambda: runner.dec.dec.decode(inp)  # noqa: E731
         threads = {}
-        for th in (128, 256, 512, 256, 128):
-            kernel_mod.THREADS = th
+        for th in (128, 256, 512, 256, 128) if kernel_mod else (256, 256):
+            if kernel_mod:
+                kernel_mod.THREADS = th
             decode()
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
@@ -215,7 +225,8 @@ def main() -> None:
             stop.record()
             torch.cuda.synchronize()
             threads.setdefault(th, []).append(start.elapsed_time(stop) / 20)
-        kernel_mod.THREADS = 256
+        if kernel_mod:
+            kernel_mod.THREADS = 256
         point["decode_ms_by_threads"] = threads
         print(f"{snr} {unit} decode ms by threads/CTA: "
               + ", ".join(f"{k}: {v}" for k, v in threads.items())

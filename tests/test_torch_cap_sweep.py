@@ -294,10 +294,31 @@ def test_campaign_refuses_unported():
         campaign.run_campaign(["REG_ENS"], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
         campaign.main(["IREG_ENS", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        campaign.run_campaign(["MAR"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        campaign.run_campaign(["HMG"], device="cpu")
+    # HMG (ML, LP, SPA, MSA, ADMM) and MAR (ADMM + the five BP legs) plan
+    # whole; only ADMMA is left without a port.
+    plan = campaign._plan(["HMG", "MAR"], True)
+    assert len(plan) == 14 + 8
+    assert {cfg.decoder for _, _, cfg, _ in plan} == {"ML", "LP", "SPA",
+                                                      "MSA", "ADMM"}
+    assert campaign._DECODER_ITEM == {"ADMMA": "A.13"}
+
+
+@pytest.mark.parametrize("case,n_runs,param", [("HMG", 14, 0.3),
+                                               ("MAR", 8, 0.45)])
+def test_campaign_hmg_mar_run_cpu(tmp_path, case, n_runs, param):
+    """HMG and MAR end to end at a tiny size (one sweep point per leg)."""
+    res = campaign.run_campaign(
+        [case], data_dir=str(tmp_path), device="cpu",
+        overrides=dict(batch=8, min_wec=1, max_words=16, params=[param],
+                       log_freq=1e9))
+    assert len(res) == n_runs
+    for (name, argv), leg in res.items():
+        assert name == case and leg[param]["tot"] >= 8
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert len(names) == n_runs
+    admm = [n for n in names if "-ADMM-" in n]
+    assert len(admm) == 3 and all(n.endswith("-3.0-1e-05-10-False.json")
+                                  for n in admm)
 
 
 def test_campaign_reg_bad_cap_sweep_cpu(tmp_path, monkeypatch):

@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the CUDA min-sum, SPA and erasure kernels
-against their plain PyTorch versions, bit for bit (decisions and iteration
-counts), single-cap and with ``caps=`` snapshot planes.
+"""PyTorch port on the card: the CUDA min-sum, SPA, erasure and ADMM
+kernels against their plain PyTorch versions, bit for bit (decisions and
+iteration counts; ADMM's fractional x too), single-cap and with ``caps=``
+snapshot planes.
 Marked ``cuda`` and skipped without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -16,7 +17,12 @@ torch.set_num_threads(2)
 
 from ldpc_decoders_tpu_torch.channels import bec, biawgn, bsc  # noqa: E402
 from ldpc_decoders_tpu_torch.codes import get_code  # noqa: E402
-from ldpc_decoders_tpu_torch.ops import bec_kernel, msa_kernel, spa_kernel  # noqa: E402
+from ldpc_decoders_tpu_torch.ops import (  # noqa: E402
+    admm_kernel,
+    bec_kernel,
+    msa_kernel,
+    spa_kernel,
+)
 from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, bp_tables  # noqa: E402
 
 
@@ -240,3 +246,61 @@ def test_bec_caps_planes(cuda, name):
     _assert_planes(bec_kernel.bec_spa_decode_cuda,
                    bec_kernel.bec_spa_decode_plain, y, t, {})
     assert bec_kernel.bec_spa_decode_cuda.launches_caps == before + 1
+
+
+def _admm_llr(code, channel, param, batch, cuda, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.ones((batch, code.get_n()), dtype=torch.int32, device=cuda)
+    mod = {"biawgn": biawgn, "bsc": bsc, "bec": bec}[channel]
+    return mod.llr(mod.send(x, param, gen), param)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,channel,param,max_iter,batch", [
+    ("1200_3_6_ldpc", "biawgn", 2.0, 50, 512),
+    ("1200_3_6_ldpc", "biawgn", 3.0, 50, 512),
+    ("1200_3_6_ldpc", "bsc", 0.05, 50, 512),
+    ("1200_3_6_ldpc", "bec", 0.35, 50, 512),          # +-1e8 LLRs
+    ("7_4_hamming", "bsc", 0.1, 50, 1024),            # var degrees 1..3
+    ("7_4_hamming", "biawgn", 3.0, 2000, 1024),
+    ("1200_rho_x5_rand_ldpc_3", "biawgn", 2.0, 50, 256),  # padded slots
+    ("margulis", "biawgn", 2.0, 100, 128),
+    ("margulis", "bsc", 0.07, 1000, 16),              # long tails
+])
+def test_admm_kernel_bit_equal_plain(cuda, name, channel, param, max_iter,
+                                     batch):
+    code = get_code(name)
+    t = bp_tables(code.graph.to(cuda))
+    llr = _admm_llr(code, channel, param, batch, cuda, seed=21)
+    kw = dict(mu=3.0, eps=1e-5, max_iter=max_iter, n_edge=code.graph.n_edge)
+    before = admm_kernel.admm_decode_cuda.launches
+    xk, ik, fk = admm_kernel.admm_decode(llr, t, **kw)
+    assert admm_kernel.admm_decode_cuda.launches == before + 1
+    xp, ip, fp = admm_kernel.admm_decode_plain(llr, t, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip), (int((ik != ip).sum()), batch)
+    assert torch.equal(xk, xp) and torch.equal(fk, fp), (
+        int((xk != xp).any(dim=1).sum()), float((fk - fp).abs().max()))
+    assert int(ik.min()) < max_iter or name == "margulis"
+
+
+@pytest.mark.cuda
+def test_admm_kernel_shapes_and_refusals(cuda):
+    code = get_code("1200_3_6_ldpc")
+    t = bp_tables(code.graph.to(cuda))
+    kw = dict(mu=3.0, eps=1e-5, max_iter=50, n_edge=code.graph.n_edge)
+    llr = torch.full((5, 1200), -4.0, device=cuda)
+    x, it, xf = admm_kernel.admm_decode_cuda(llr, t, **kw)
+    assert int(x.sum()) == 5 * 1200 and (it < 50).all()
+    assert xf.dtype == torch.float32 and float(xf.min()) == 1.0
+    x, it, xf = admm_kernel.admm_decode_cuda(llr[:0], t, **kw)
+    assert x.shape == (0, 1200) and it.shape == (0,) and xf.shape == (0, 1200)
+    for bad in (llr.double(), llr[:, :600], llr.cpu(), llr.t()):
+        with pytest.raises(ValueError):
+            admm_kernel.admm_decode_cuda(bad, t, **kw)
+    H = np.zeros((2, 12), dtype=np.int8)
+    H[0, :admm_kernel.MAX_CHK_DEG + 1] = 1
+    H[1, 8:] = 1
+    wide = bp_tables(TannerGraph.from_parity_mtx(H, device=cuda))
+    with pytest.raises(ValueError, match="check degree"):
+        admm_kernel.admm_decode_cuda(llr[:, :12].contiguous(), wide, **kw)

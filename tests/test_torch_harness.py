@@ -6,6 +6,10 @@
 - the CLI on the CPU writes the JAX package's Saver file, with a WER
   within |z| <= 4 (Agresti-Coull, docs/PARITY.md) of the committed
   artifact;
+- an ADMM run's Saver file carries the iteration histogram (``dec``:
+  ``average`` and a 2000-long ``iter``) in the JAX key order; the CLI's
+  ADMM, ML and LP runs on Hamming(7,4) are within |z| <= 4 of their
+  goldens; the host-only (LP) chunk returns the same packed tally;
 - importing the port pulls in neither jax nor ldpc_decoders_tpu.
 """
 
@@ -78,13 +82,13 @@ def test_cli_cpu_run_matches_artifact(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["bec", "1200_3_6_ldpc", "ML"],
-    ["bec", "1200_3_6_ldpc", "ADMM"],
-    ["bsc", "1200_3_6_ldpc", "ADMM"],
-    ["biawgn", "1200_3_6_ldpc", "MSA", "--mu", "2.0"],
+    ["bec", "1200_3_6_ldpc", "ADMMA"],
+    ["bsc", "1200_3_6_ldpc", "ADMMA"],
+    ["biawgn", "1200_3_6_ldpc", "ADMMA"],
+    ["biawgn", "1200_3_6_ldpc", "MSA", "--layers", "50"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--mesh", "2"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--kernel", "xla"],
-    ["bsc", "1200_3_6_ldpc", "ML"],
+    ["bsc", "1200_3_6_ldpc", "ADMM", "--train"],
     ["bsc", "1200_3_6_ldpc", "SPA", "--mesh-code", "2"],
 ])
 def test_cli_refuses_unported(argv, capsys):
@@ -110,6 +114,14 @@ def test_cli_flags_map_to_config():
     with pytest.raises(SystemExit):
         port_main.parse_args(["bsc", "1200_3_6_ldpc", "SPA",
                               "--inf-policy", "clip"])
+    args = port_main.parse_args([
+        "bsc", "margulis", "ADMM", "--max-iter=0", "--iter-cap", "8000",
+        "--mu", "2.5", "--eps", "1e-4", "--allow-pseudo", "--presort", "on"])
+    assert args.decoder == "ADMM" and args.max_iter == 0
+    assert args.iter_cap == 8000 and args.mu == 2.5 and args.eps == 1e-4
+    assert args.allow_pseudo and args.presort == "on"
+    for dec in ("ML", "LP"):
+        assert port_main.parse_args(["bec", "7_4_hamming", dec]).decoder == dec
 
 
 def test_runner_random_codeword_and_caps():
@@ -127,10 +139,10 @@ def test_runner_random_codeword_and_caps():
                                    decoder="MSA", codeword=-1, device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MonteCarloRunner(RunConfig(channel="bec", code="7_4_hamming",
-                                   decoder="ML", device="cpu"))
+                                   decoder="ADMMA", device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MonteCarloRunner(RunConfig(channel="bsc", code="7_4_hamming",
-                                   decoder="ADMM", device="cpu"))
+                                   decoder="ADMMA", device="cpu"))
     with pytest.raises(ValueError, match="inf_policy"):
         MonteCarloRunner(RunConfig(channel="bsc", code="7_4_hamming",
                                    decoder="SPA", inf_policy="clip",
@@ -148,6 +160,87 @@ def test_saver_file_equals_jax(tmp_path):
         files.append(open(s.file_path).read())
         assert os.path.basename(s.file_path) == "biawgn-c-MSA-1-5-10.json"
     assert files[0] == files[1]
+
+
+def _z_against_golden(saved, name, key):
+    with open(os.path.join(ROOT, "artifacts", "data", name)) as fp:
+        ref = json.load(fp)
+    assert list(saved) == list(ref)               # the JAX Saver schema
+    w_o, t_o = saved["wer"][key], saved["tot"][key]
+    w_r, t_r = ref["wer"][key], ref["tot"][key]
+    return (w_o - w_r) / math.sqrt(_ac_var(w_o, t_o) + _ac_var(w_r, t_r))
+
+
+def test_cli_admm_cpu_saver_has_iteration_histogram(tmp_path):
+    name = "bsc-7_4_hamming-ADMM-1-300-3.0-1e-05-50-False.json"
+    res = port_main.main([
+        "bsc", "7_4_hamming", "ADMM", "--max-iter", "50", "--params", "0.1",
+        "--codeword", "1", "--min-wec", "300", "--batch", "1024", "--device",
+        "cpu", "--presort", "on", "--console", "--data_dir", str(tmp_path)])
+    saved = json.loads((tmp_path / name).read_text())
+    assert list(saved)[-3:] == ["ber", "dec", "words_per_sec"]
+    dec = saved["dec"]["0.1"]
+    assert list(dec) == ["average", "iter"] and len(dec["iter"]) == 2000
+    assert sum(dec["iter"]) == saved["tot"]["0.1"]
+    assert max(i for i, n in enumerate(dec["iter"]) if n) <= 50
+    assert dec["average"] == pytest.approx(
+        np.dot(dec["iter"], np.arange(2000)) / saved["tot"]["0.1"])
+    assert res[0.1]["dec"]["iter"] == dec["iter"]
+    assert abs(_z_against_golden(saved, name, "0.1")) <= 4.0
+
+
+@pytest.mark.parametrize("channel,decoder,param,name", [
+    ("bsc", "ML", 0.1, "bsc-7_4_hamming-ML-1-300.json"),
+    ("bec", "ML", 0.3, "bec-7_4_hamming-ML-1-300.json"),
+    ("biawgn", "ML", 3.0, "biawgn-7_4_hamming-ML-1-300.json"),
+    ("bsc", "LP", 0.1, "bsc-7_4_hamming-LP-1-300-10-False.json"),
+    ("bec", "LP", 0.3, "bec-7_4_hamming-LP-1-300-10-False.json"),
+    ("biawgn", "LP", 3.0, "biawgn-7_4_hamming-LP-1-300-10-False.json"),
+    ("bec", "ADMM", 0.3, "bec-7_4_hamming-ADMM-1-300-3.0-1e-05-50-False.json"),
+    ("biawgn", "ADMM", 3.0,
+     "biawgn-7_4_hamming-ADMM-1-300-3.0-1e-05-50-False.json"),
+])
+def test_cli_hamming_cpu_runs_match_goldens(tmp_path, channel, decoder, param,
+                                            name):
+    argv = [channel, "7_4_hamming", decoder, "--params", str(param),
+            "--codeword", "1", "--min-wec", "300", "--batch", "1024",
+            "--device", "cpu", "--console", "--data_dir", str(tmp_path)]
+    if decoder == "ADMM":
+        argv += ["--max-iter", "50"]
+    port_main.main(argv)
+    saved = json.loads((tmp_path / name).read_text())
+    z = _z_against_golden(saved, name, str(param))
+    assert abs(z) <= 4.0, (saved["wer"], z)
+
+
+def test_packed_tally_shapes_admm_and_host_chunk():
+    """The ADMM chunk packs [wec, bec] + the 2000-bin histogram into one
+    vector; the host-only (LP) chunk returns the plain [wec, bec] pair
+    through the same dispatch, at pipeline depth 1."""
+    common = dict(channel="bsc", code="7_4_hamming", params=[0.1],
+                  codeword=1, batch=256, device="cpu")
+    admm = MonteCarloRunner(RunConfig(decoder="ADMM", max_iter=0,
+                                      iter_cap=3000, **common))
+    assert admm.track_hist and not admm.host_only
+    tally, event = admm._dispatch(0.1, admm._generator(0))
+    assert event is None and tally.shape == (2002,)
+    assert tally.dtype == torch.int64 and int(tally[2:].sum()) == 256
+    assert 0 < int(tally[0]) < 256
+    # iteration counts beyond the last bin clip into it
+    admm.dec.decode = lambda y, p, g: (
+        torch.ones((256, 7), dtype=torch.int32),
+        {"iters": torch.full((256,), 2500, dtype=torch.int32)})
+    tally, _ = admm._dispatch(0.1, admm._generator(0))
+    assert int(tally[2 + 1999]) == 256 and int(tally[0]) == 0
+
+    lp = MonteCarloRunner(RunConfig(decoder="LP", min_wec=20, pipeline=4,
+                                    **common))
+    assert lp.host_only and not lp.track_hist
+    tally, event = lp._dispatch(0.1, lp._generator(0))
+    assert event is None and tally.shape == (2,) and not tally.is_cuda
+    res = lp.run()[0.1]
+    assert res["wec"] >= 20 and "dec" not in res
+    assert lp.last_dispatch_stats["dispatched"] == res["tot"] // 256
 
 
 def test_port_imports_no_jax():
