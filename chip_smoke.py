@@ -34,7 +34,10 @@ Phases (any failure exits non-zero and prints no result line):
      p=0.35 (+-1e8 LLRs); Hamming(7,4) (variable degrees 1..3) BSC p=0.1
      cap 50; 1200_rho_x5_rand_ldpc_3 (padded check slots) biAWGN 2.0 dB
      cap 50; margulis biAWGN 2.0 dB cap 100; margulis BSC p=0.07 in
-     converge mode (bound 8000) on 128 words.
+     converge mode (bound 8000) on 128 words. Each case runs under the
+     thread count the wrapper's rule picks and under every entry of
+     ``ADMM_THREADS`` (threads per word): the outputs must not depend on
+     the launch geometry.
 4. The main paths through the CLI (``main.main``, codeword as stated,
    batch 16384). Each run's kernel launch count is set to 0 just before
    it and must have risen just after; each Saver file must have the JAX
@@ -84,7 +87,10 @@ Phases (any failure exits non-zero and prints no result line):
    words beside the kernel on the same 128 (``plain_ms`` with
    ``plain_batch`` and ``ms_at_plain_batch`` in the ``kernels`` line:
    measured, not scaled). Each kernel is also held bit-equal to its plain
-   version at this shape.
+   version at this shape. Both ADMM inputs are also timed under every
+   entry of ``ADMM_THREADS`` (one line each); their ``kernels`` entries
+   carry ``threads``, the count per word that the rule picked and that
+   ``ms`` was measured under.
 
 The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
 bytes it must move (input read once, K output planes and the iteration
@@ -137,6 +143,9 @@ ADMM_KW = dict(mu=3.0, eps=1e-5)
 MAR_CAP = 8000          # the MAR goldens' bound on a run to convergence
 B_MAR = 2048
 B_MAR_PLAIN = 128
+# Threads per word every ADMM case is also run under, beside the count the
+# wrapper's rule picks.
+ADMM_THREADS = (32, 128, 256, 320, 512, 704, 1024)
 
 
 def admm_ops(word_iterations: int, bracket_rows: int, n_edge: int,
@@ -313,6 +322,16 @@ def main() -> None:
             fail(f"{kname} kernel != plain on {code_name} {channel} {param} "
                  f"({desc})")
         max_err[kname] = max(max_err[kname], err)
+        if kname.startswith("admm"):
+            for threads in ADMM_THREADS:
+                err = max_abs_diff(cuda_fn(llr, t, threads=threads, **kw),
+                                   out_p)
+                if err:
+                    fail(f"{kname} kernel != plain on {code_name} {channel} "
+                         f"{param} ({desc}) at {threads} threads per word: "
+                         f"{err}")
+            print(f"  and at {len(ADMM_THREADS)} more thread counts: "
+                  f"max_abs_err=0", flush=True)
 
     msa_cases = [(FLAG, "biawgn", 1.5, False), (FLAG, "biawgn", 3.0, False),
                  ("1200_rho_x5_rand_ldpc_1", "biawgn", 2.0, False),
@@ -736,6 +755,35 @@ def main() -> None:
         running = step_no[:, None] < updates[None, :]
         return int(updates.sum()), int((per_iter * running).sum())
 
+    def rule_threads(code_name):
+        """Threads per word of the wrapper's own launches on this graph."""
+        g = tab(code_name)[0].graph
+        return admm_kernel.admm_geometry(g.n_chk, g.n_var,
+                                         g.max_chk_deg).threads
+
+    def time_admm_geometries(label, code_name, llr, kw, want):
+        """One line per entry of ``ADMM_THREADS``: the decode's time
+        under it (CUDA events, the better of two), its outputs held equal
+        to ``want``."""
+        _, t = tab(code_name)
+        for threads in ADMM_THREADS:
+            ms = []
+            for _ in range(2):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = admm_kernel.admm_decode_cuda(llr, t, threads=threads,
+                                                   **kw)
+                stop.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(stop))
+            if max_abs_diff(out, want):
+                fail(f"admm_decode at {threads} threads per word != at the "
+                     f"rule's count ({label})")
+            print(f"timing {label} at {threads} threads per word: decode "
+                  f"{min(ms):.4f} ms at B={llr.shape[0]} | {card}",
+                  flush=True)
+
     def time_case(kname, label, code_name, channel, param, kw, codeword,
                   caps=None):
         """Times kernel ``kname`` and its plain version at B=16384 and
@@ -844,9 +892,13 @@ def main() -> None:
               f"bound {bound[bound_by]:.4f} ms by {bound_by} (bytes "
               f"{bound['bytes']:.4f} ms, operations "
               f"{bound['operations']:.4f} ms) | {card}", flush=True)
-        return {"ms": best["kernel"], "plain_ms": best["plain"],
-                "bound_ms": bound[bound_by], "bound_by": bound_by,
-                "library_ms": None}
+        entry = {"ms": best["kernel"], "plain_ms": best["plain"],
+                 "bound_ms": bound[bound_by], "bound_by": bound_by,
+                 "library_ms": None}
+        if is_admm:
+            time_admm_geometries(label, code_name, llr, kw, out_k)
+            entry["threads"] = rule_threads(code_name)
+        return entry
 
     msa_kw = dict(check_init=False, msg_dtype=bf16)
     ref_kw = dict(check_init=False, msg_dtype=bf16, inf_policy="reference")
@@ -895,9 +947,10 @@ def main() -> None:
         kw = admm_kw("margulis", MAR_CAP)
         llr = seeded_llr("margulis", "bsc", 0.07, B_MAR, seed=3, codeword=1)
         head = llr[:B_MAR_PLAIN].contiguous()
-        runs = {"kernel": (admm_kernel.admm_decode_cuda, llr),
+        kernel = admm_kernel.admm_decode_cuda
+        runs = {"kernel": (kernel, llr),
                 "plain": (admm_kernel.admm_decode_plain, head),
-                "kernel_head": (admm_kernel.admm_decode_cuda, head)}
+                "kernel_head": (kernel, head)}
 
         def timed_once(fn, inp):
             start = torch.cuda.Event(enable_timing=True)
@@ -908,7 +961,7 @@ def main() -> None:
             torch.cuda.synchronize()
             return start.elapsed_time(stop), out
 
-        admm_kernel.admm_decode_cuda(head, t, **kw)       # warm-up
+        kernel(head, t, **kw)                             # warm-up
         ms = {route: [] for route in runs}
         out = {}
         with bracket_counts() as counts:
@@ -950,11 +1003,14 @@ def main() -> None:
               f"{bound[bound_by]:.4f} ms by {bound_by} (bytes "
               f"{bound['bytes']:.4f} ms, operations "
               f"{bound['operations']:.4f} ms) | {card}", flush=True)
+        label = "admm margulis bsc 0.07 converge"
+        time_admm_geometries(label, "margulis", llr, kw, out["kernel"])
+        time_admm_geometries(label, "margulis", head, kw, out["kernel_head"])
         return {"ms": best["kernel"], "batch": B_MAR,
                 "plain_ms": best["plain"], "plain_batch": B_MAR_PLAIN,
                 "ms_at_plain_batch": best["kernel_head"],
                 "bound_ms": bound[bound_by], "bound_by": bound_by,
-                "library_ms": None}
+                "library_ms": None, "threads": rule_threads("margulis")}
 
     timed["admm_decode_margulis"] = time_margulis()
 

@@ -31,20 +31,31 @@ kernel, so the two agree bit for bit on the card:
 - lam/mu and gamma/mu are products with 1/mu, rounded to float32 once
   (the JAX Pallas kernel's form; its gather route divides by mu instead,
   which costs the CUDA kernel a quarter of its time); every product, sum
-  and quotient is rounded on its own (no fused multiply-add);
+  and quotient is rounded on its own (the kernel fuses a multiply with an
+  add only where the product is exact: a factor +1, -1 or 0 of the facet
+  normal);
 - the x-update adds a variable's slots in slot order starting from 0,
   subtracts gamma/mu last, then divides by the degree (the gather route's
   order; the Pallas kernel starts from -gamma/mu);
 - each squared norm is summed as: a check row's slots in slot order; then
-  check c goes to lane c mod 256, a lane adding its checks in ascending
-  order; then the 256 lanes by halving within each group of 32 (strides
-  16, 8, 4, 2, 1) and the 8 group sums by halving (strides 4, 2, 1). In
-  the kernel a lane is a thread, a group a warp.
+  the check rows in blocks of 8 consecutive rows (the last block filled up
+  with zeros), a block halved with row strides 4, 2, 1; then block b goes
+  to lane b mod 32, a lane adding its blocks in ascending order; then the
+  32 lanes by halving (strides 16, 8, 4, 2, 1). No thread count enters
+  this order, so the kernel may be launched with any number of warps: a
+  warp takes 32 consecutive rows at a time, four whole blocks, and sums a
+  block with three xor-shuffles.
+
+The launch geometry is the wrapper's own choice, by ``admm_geometry`` from
+the graph; callers have no flag for it. ``admm_decode_cuda(threads=...)``
+forces a thread count, for tests and measurements; a geometry the card
+cannot take raises. The outputs do not depend on it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,9 +67,18 @@ from ldpc_decoders_tpu_torch.ops.projection import (
     project_parity_polytope,
 )
 
-LANES = 256             # CUDA threads per codeword (one CTA per word)
 WARP = 32
+ROW_BLOCK = 8           # check rows per block of the norm sums (kRowBlock)
 MAX_CHK_DEG = 8         # check rows wider than this are refused (kMaxD)
+REGULAR_VAR_DEG = 3     # the kernel's unrolled x-update (kRegularDv)
+MAX_THREADS = 1024      # CUDA threads per codeword (one CTA per word)
+# One H100 SM: the shared memory it gives one CTA (227 KB), what it has
+# for all resident CTAs (228 KB, of which the runtime keeps 1 KB per CTA),
+# and its resident warps.
+SMEM_PER_CTA = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+WARPS_PER_SM = 64
 
 
 def _inv_mu(mu: float) -> float:
@@ -71,25 +91,77 @@ def _threshold(eps: float, n_edge: int) -> float:
     return float(np.float32(float(eps) ** 2 * int(n_edge)))
 
 
+def _halve(x: torch.Tensor, width: int) -> torch.Tensor:
+    """[..., width] -> [...]: halving with strides width/2, ..., 2, 1."""
+    s = width // 2
+    while s:
+        x = x[..., :s] + x[..., s:2 * s]
+        s //= 2
+    return x[..., 0]
+
+
+def _pad_to(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    short = -x.shape[-1] % multiple
+    if short:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (short,))], dim=-1)
+    return x
+
+
 def word_sum(rows: torch.Tensor) -> torch.Tensor:
     """[B, C] per-check values -> [B], in the fixed order of the module
-    docstring (lanes, then halvings)."""
-    B, C = rows.shape
-    per_lane = -(-C // LANES)
-    if per_lane * LANES != C:
-        rows = torch.cat([rows, rows.new_zeros(B, per_lane * LANES - C)],
-                         dim=1)
-    rows = rows.reshape(B, per_lane, LANES)
-    acc = rows[:, 0]
-    for r in range(1, per_lane):
-        acc = acc + rows[:, r]
-    acc = acc.reshape(B, LANES // WARP, WARP)
-    for s in (16, 8, 4, 2, 1):
-        acc = acc[..., :s] + acc[..., s:2 * s]
-    acc = acc[..., 0]
-    for s in (4, 2, 1):
-        acc = acc[:, :s] + acc[:, s:2 * s]
-    return acc[:, 0]
+    docstring (blocks of 8 rows, then 32 lanes of blocks)."""
+    B = rows.shape[0]
+    blocks = _halve(_pad_to(rows, ROW_BLOCK).reshape(B, -1, ROW_BLOCK),
+                    ROW_BLOCK)                                  # [B, nb]
+    turns = _pad_to(blocks, WARP).reshape(B, -1, WARP)
+    acc = turns[:, 0]
+    for r in range(1, turns.shape[1]):
+        acc = acc + turns[:, r]
+    return _halve(acc, WARP)
+
+
+class Geometry(NamedTuple):
+    """How a decode is launched: ``threads`` per word (one CTA) and the
+    word's shared memory in bytes."""
+    threads: int
+    smem_bytes: int
+
+
+def make_geometry(C: int, V: int, Dc: int, threads: int) -> Geometry:
+    """``threads`` per word on a [C, Dc] graph, or ValueError where the
+    kernel or the card cannot take it."""
+    if Dc > MAX_CHK_DEG:
+        raise ValueError(f"check degree {Dc} > {MAX_CHK_DEG} (the kernel "
+                         "keeps a check row in registers)")
+    if threads % WARP or not WARP <= threads <= MAX_THREADS:
+        raise ValueError(f"threads per word must be a multiple of {WARP} "
+                         f"in [{WARP}, {MAX_THREADS}], got {threads}")
+    # z and lam [Dc, C], x [V] and the 2 * ceil(C / 8) block sums, f32
+    smem = 4 * (2 * Dc * C + V + 2 * -(-C // ROW_BLOCK))
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"a word needs {smem} bytes of shared memory, an SM "
+                         f"gives a CTA {SMEM_PER_CTA}")
+    return Geometry(threads, smem)
+
+
+def admm_geometry(C: int, V: int, Dc: int) -> Geometry:
+    """The wrapper's rule: one warp per run of 32 check rows, up to 8
+    warps, and twice that for as long as the words that fit an SM by
+    their shared memory then still fit it by their warps. A word with
+    much state leaves an SM few resident words, and more warps each keep
+    it busy: margulis (73.5 KB, 3 words per SM) gets 16 warps,
+    LDPC(1200,3,6) (33.4 KB, 6 words) 8, Hamming(7,4) its one run of rows.
+    Measured on an H100 with ``scripts/sweep_admm_geometry.py``: 16 warps
+    take 16% less time than 8 over eight margulis chunks run to
+    convergence and no more than 32; 8 take 9% less than 16 on
+    LDPC(1200,3,6)."""
+    words = SMEM_PER_SM // (make_geometry(C, V, Dc, WARP).smem_bytes
+                            + SMEM_RESERVED)
+    warps = 8
+    while 2 * warps * WARP <= MAX_THREADS and \
+            2 * warps * words <= WARPS_PER_SM:
+        warps *= 2
+    return make_geometry(C, V, Dc, WARP * min(-(-C // WARP), warps))
 
 
 def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
@@ -142,9 +214,12 @@ def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
 
 
 def admm_decode_cuda(llr: torch.Tensor, t: BPTables, *, mu: float,
-                     eps: float, max_iter: int, n_edge: int) -> tuple:
-    """Launch ``csrc/admm_decode.cu`` on the current stream (no sync).
-    Counts launches in ``admm_decode_cuda.launches``."""
+                     eps: float, max_iter: int, n_edge: int,
+                     threads: Optional[int] = None) -> tuple:
+    """Launch ``csrc/admm_decode.cu`` on the current stream (no sync), at
+    the geometry ``admm_geometry`` picks for this graph. ``threads`` forces
+    a thread count per word; it is for tests and measurements. Counts
+    launches in ``admm_decode_cuda.launches``."""
     if not llr.is_cuda:
         raise ValueError("admm_decode_cuda needs a CUDA tensor")
     if llr.dtype != torch.float32 or llr.dim() != 2 \
@@ -154,9 +229,6 @@ def admm_decode_cuda(llr: torch.Tensor, t: BPTables, *, mu: float,
     Dv, V = t.k_var_slot.shape
     if llr.shape[1] != V:
         raise ValueError(f"llr has {llr.shape[1]} variables, graph has {V}")
-    if Dc > MAX_CHK_DEG:
-        raise ValueError(f"check degree {Dc} > {MAX_CHK_DEG} (the kernel "
-                         "keeps a check row in registers)")
     if max_iter < 0:
         raise ValueError("max_iter must be >= 0")
     for tab in (t.k_chk_var, t.k_var_slot):
@@ -164,21 +236,27 @@ def admm_decode_cuda(llr: torch.Tensor, t: BPTables, *, mu: float,
                 or not tab.is_contiguous()):
             raise ValueError("kernel tables must be contiguous int32 on the "
                              "device of llr")
-    lib = _kernel_library()
     B = llr.shape[0]
+    geo = (admm_geometry(C, V, Dc) if threads is None
+           else make_geometry(C, V, Dc, threads))
+    lib = _kernel_library()
     x_hat = torch.empty((B, V), dtype=torch.int32, device=llr.device)
     iters = torch.empty((B,), dtype=torch.int32, device=llr.device)
     x = torch.empty((B, V), dtype=torch.float32, device=llr.device)
+    regular_dv = Dv if (t.chk_full and t.var_full
+                        and Dv == REGULAR_VAR_DEG) else 0
     stream = torch.cuda.current_stream(llr.device).cuda_stream
     with torch.cuda.device(llr.device):
         rc = lib.admm_decode_launch(
             llr.data_ptr(), t.k_chk_var.data_ptr(), t.k_var_slot.data_ptr(),
             x_hat.data_ptr(), iters.data_ptr(), x.data_ptr(), B, C, V, Dc,
             Dv, float(mu), _inv_mu(mu), _threshold(eps, n_edge),
-            int(max_iter), stream)
+            int(max_iter), int(t.chk_full), regular_dv, geo.threads, stream)
     if rc != 0:
-        raise RuntimeError("admm_decode kernel launch failed: "
-                           + lib.admm_decode_error_string(rc).decode())
+        raise RuntimeError(
+            f"admm_decode kernel launch failed at {geo.threads} threads and "
+            f"{geo.smem_bytes} bytes of shared memory per word: "
+            + lib.admm_decode_error_string(rc).decode())
     admm_decode_cuda.launches += 1
     return x_hat, iters, x
 
@@ -190,7 +268,8 @@ def _kernel_library() -> ctypes.CDLL:
     lib = load_library("admm_decode")
     if lib.admm_decode_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.admm_decode_launch.argtypes = [p] * 6 + [i] * 5 + [f, f, f, i, p]
+        lib.admm_decode_launch.argtypes = ([p] * 6 + [i] * 5 + [f, f, f]
+                                           + [i] * 4 + [p])
         lib.admm_decode_launch.restype = i
         lib.admm_decode_error_string.argtypes = [i]
         lib.admm_decode_error_string.restype = ctypes.c_char_p

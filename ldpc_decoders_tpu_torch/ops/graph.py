@@ -142,6 +142,8 @@ class BPTables(NamedTuple):
     vmask: torch.Tensor      # [V, Dv] bool
     k_chk_var: torch.Tensor  # [Dc, C] int32, -1 = pad (kernel, slot-major)
     k_var_slot: torch.Tensor  # [Dv, V] int32 into slot-major [Dc, C], -1 = pad
+    chk_full: bool           # no check slot is padded
+    var_full: bool           # no variable slot is padded
 
 
 def bp_tables(graph: TannerGraph) -> BPTables:
@@ -163,7 +165,8 @@ def bp_tables(graph: TannerGraph) -> BPTables:
         chk_var=dev(chk_var, torch.int64), cmask=dev(cmask, torch.bool),
         var_slot=dev(var_slot, torch.int64), vmask=dev(vmask, torch.bool),
         k_chk_var=dev(np.where(cmask, chk_var, -1).T, torch.int32),
-        k_var_slot=dev(k_var_slot.T, torch.int32))
+        k_var_slot=dev(k_var_slot.T, torch.int32),
+        chk_full=bool(cmask.all()), var_full=bool(vmask.all()))
 
 
 def syndrome_ok(x_hat: torch.Tensor, t: BPTables) -> torch.Tensor:

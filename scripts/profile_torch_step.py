@@ -23,7 +23,9 @@ For each point:
 2. the runner end to end (one packed tally per chunk): ``words_per_sec``
    over a fixed number of words;
 3. the decode kernel alone (CUDA events) at 128, 256 and 512 threads per
-   codeword (the ADMM kernel has a fixed 256: its time once).
+   codeword; the ADMM kernel at the launch geometry its wrapper picks for
+   the graph, which is reported (other thread counts:
+   ``scripts/sweep_admm_geometry.py``).
 
 With ``--campaign`` the script instead runs that whole campaign case once
 (``campaign.run_campaign``, its own batch and ``min_wec``) after building
@@ -58,6 +60,7 @@ from ldpc_decoders_tpu_torch.harness import (  # noqa: E402
 )
 from ldpc_decoders_tpu_torch.ops import (  # noqa: E402
     _build,
+    admm_kernel,
     bec_kernel,
     msa_kernel,
 )
@@ -213,7 +216,15 @@ def main() -> None:
         else:
             decode = lambda: runner.dec.dec.decode(inp)  # noqa: E731
         threads = {}
-        for th in (128, 256, 512, 256, 128) if kernel_mod else (256, 256):
+        if kernel_mod is None:
+            g = runner.code.graph
+            geo = admm_kernel.admm_geometry(g.n_chk, g.n_var, g.max_chk_deg)
+            point["geometry"] = geo._asdict()
+            print(f"{snr} {unit} ADMM launch geometry: {geo} | {card}")
+            sweep = (geo.threads, geo.threads)
+        else:
+            sweep = (128, 256, 512, 256, 128)
+        for th in sweep:
             if kernel_mod:
                 kernel_mod.THREADS = th
             decode()

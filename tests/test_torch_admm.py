@@ -47,6 +47,12 @@ from ldpc_decoders_tpu_torch.utils.math import (  # noqa: E402
 )
 
 SAFE_INF = 1e8
+# graph -> threads per word: what the rule settled on.
+THREADS_BY_RULE = {
+    "1200_3_6_ldpc": 256, "margulis": 512, "7_4_hamming": 32,
+    "1200_rho_x5_rand_ldpc_3": 256, "1200_rho_x5_rand_ldpc_1": 256,
+    "4_2_test": 32,
+}
 
 
 def _rows(d, seed):
@@ -138,6 +144,114 @@ def test_word_sum_is_a_sum():
     # exact on integers, whatever the order
     ints = torch.arange(600, dtype=torch.float32).repeat(3, 1)
     assert admm_kernel.word_sum(ints).tolist() == [179700.0] * 3
+
+
+def _scalar_word_sum(row):
+    """The documented order, one float32 addition at a time: blocks of 8
+    consecutive rows halved with strides 4, 2, 1; block b to lane b mod 32,
+    a lane adding its blocks in ascending order; the 32 lanes halved with
+    strides 16, 8, 4, 2, 1."""
+    f32 = np.float32
+    n_blk = -(-len(row) // 8)
+    blocks = []
+    for b in range(n_blk):
+        part = [row[8 * b + i] if 8 * b + i < len(row) else f32(0)
+                for i in range(8)]
+        for s in (4, 2, 1):
+            part = [f32(part[i] + part[i + s]) for i in range(s)]
+        blocks.append(part[0])
+    lanes = []
+    for j in range(32):
+        acc = blocks[j] if j < n_blk else f32(0)
+        for b in range(j + 32, n_blk, 32):
+            acc = f32(acc + blocks[b])
+        lanes.append(acc)
+    for s in (16, 8, 4, 2, 1):
+        lanes = [f32(lanes[i] + lanes[i + s]) for i in range(s)]
+    return lanes[0]
+
+
+@pytest.mark.parametrize("n_chk", [3, 600, 1320, 1001])
+def test_word_sum_follows_documented_order(n_chk):
+    """1001 rows fill neither the last block of 8 nor the last turn of 32
+    lanes."""
+    rows = np.random.default_rng(n_chk).random((3, n_chk)).astype(np.float32)
+    rows[1] *= np.float32(1e-6)                    # the threshold's scale
+    got = admm_kernel.word_sum(torch.from_numpy(rows)).numpy()
+    want = np.float32([_scalar_word_sum(r) for r in rows])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(THREADS_BY_RULE))
+def test_geometry_rule(name):
+    g = get_code(name).graph
+    C, V, Dc = g.n_chk, g.n_var, g.max_chk_deg
+    geo = admm_kernel.admm_geometry(C, V, Dc)
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 1024
+    # no warp without a run of 32 rows in the first turn
+    assert geo.threads // 32 <= -(-C // 32)
+    assert geo.smem_bytes == 4 * (2 * Dc * C + V + 2 * -(-C // 8))
+    assert geo.smem_bytes <= 227 * 1024
+    assert geo == admm_kernel.make_geometry(C, V, Dc, geo.threads)
+    assert geo.threads == THREADS_BY_RULE[name]
+
+
+def test_geometry_rule_by_state_size():
+    """Twice the warps while the words an SM holds by shared memory still
+    fit it by warps; never past 1024 threads or the graph's runs of rows."""
+    threads = [admm_kernel.admm_geometry(C, 2 * C, 6).threads
+               for C in (64, 600, 800, 900, 1320, 2000, 4000)]
+    assert threads == [64, 256, 256, 512, 512, 1024, 1024]
+
+
+def test_geometry_refusals():
+    with pytest.raises(ValueError, match="check degree"):
+        admm_kernel.admm_geometry(10, 20, admm_kernel.MAX_CHK_DEG + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        admm_kernel.admm_geometry(8000, 16000, 6)
+    for threads in (0, 48, 1056):
+        with pytest.raises(ValueError):
+            admm_kernel.make_geometry(600, 1200, 6, threads)
+
+
+@pytest.mark.parametrize("row,mask_pad", [
+    ([2.0, 2.0, 0.5], 0),
+    ([3.0, 2.5, 0.25], 0),
+    ([2.0, 2.0, 0.5], 3),              # the same row in a padded check
+    ([0.5, 2.0, 2.0, -1.0, -2.0], 0),
+    ([2.0, 2.0, 0.5, -1.0, -1.0, -3.0], 0),
+])
+def test_projection_plateau_of_T(row, mask_pad):
+    """Rows on which T(beta) equals r at two or more distinct candidates:
+    then hi < lo, t_lo - t_hi = 0 and beta is lo itself."""
+    v = np.float32(row)
+    d = len(row)
+    z = v.clip(0, 1)
+    r = np.floor(z.sum()) // 2 * 2
+    order = np.argsort(-v, kind="stable")
+    f = -np.ones(d, np.float32)
+    f[order[:int(r) + 1]] = 1.0
+    assert f @ z > r                                   # outside the polytope
+    cand = np.unique(np.concatenate(
+        [np.where(f > 0, v - 1, -v), np.where(f > 0, v, 1 - v), [0.0]]
+    ).clip(0, None).astype(np.float32))
+    T = np.float32([f @ (v - b * f).clip(0, 1) for b in cand])
+    assert (T == r).sum() >= 2
+    lo = cand[T >= r].max()
+    assert cand[T <= r].min() < lo
+    want = (v - lo * f).clip(0, 1)
+    vv = np.concatenate([v, np.zeros(mask_pad, np.float32)])[None]
+    mask = None
+    if mask_pad:
+        mask = torch.from_numpy(
+            np.concatenate([np.ones(d, bool), np.zeros(mask_pad, bool)])[None])
+    got = project_parity_polytope(torch.from_numpy(vv), mask=mask).numpy()[0]
+    np.testing.assert_array_equal(got[:d], want)
+    assert (got[d:] == 0).all()
+    assert want.sum() % 2 == 0 and set(want) <= {0.0, 1.0}  # an even vertex
+    jw = np.asarray(jax_projection.project_parity_polytope(
+        jnp.asarray(v[None])))[0]
+    np.testing.assert_allclose(got[:d], jw, atol=1e-6)
 
 
 def _llr(channel, param, shape, seed):

@@ -255,8 +255,7 @@ def _admm_llr(code, channel, param, batch, cuda, seed):
     return mod.llr(mod.send(x, param, gen), param)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,channel,param,max_iter,batch", [
+ADMM_CASES = [
     ("1200_3_6_ldpc", "biawgn", 2.0, 50, 512),
     ("1200_3_6_ldpc", "biawgn", 3.0, 50, 512),
     ("1200_3_6_ldpc", "bsc", 0.05, 50, 512),
@@ -266,7 +265,11 @@ def _admm_llr(code, channel, param, batch, cuda, seed):
     ("1200_rho_x5_rand_ldpc_3", "biawgn", 2.0, 50, 256),  # padded slots
     ("margulis", "biawgn", 2.0, 100, 128),
     ("margulis", "bsc", 0.07, 1000, 16),              # long tails
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,channel,param,max_iter,batch", ADMM_CASES)
 def test_admm_kernel_bit_equal_plain(cuda, name, channel, param, max_iter,
                                      batch):
     code = get_code(name)
@@ -282,6 +285,35 @@ def test_admm_kernel_bit_equal_plain(cuda, name, channel, param, max_iter,
     assert torch.equal(xk, xp) and torch.equal(fk, fp), (
         int((xk != xp).any(dim=1).sum()), float((fk - fp).abs().max()))
     assert int(ik.min()) < max_iter or name == "margulis"
+
+
+# Threads per word: few and many warps, counts that are no power of two.
+ADMM_THREADS = [32, 96, 256, 320, 512, 704, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,channel,param,max_iter,batch", [
+    ADMM_CASES[0], ADMM_CASES[3], ADMM_CASES[4], ADMM_CASES[6], ADMM_CASES[7],
+    ("margulis", "bsc", 0.07, 8000, 16),              # converge mode
+])
+def test_admm_kernel_every_geometry(cuda, name, channel, param, max_iter,
+                                    batch):
+    """The outputs do not depend on the launch geometry: under each one
+    the kernel equals the plain version bit for bit."""
+    code = get_code(name)
+    g = code.graph
+    t = bp_tables(g.to(cuda))
+    llr = _admm_llr(code, channel, param, batch, cuda, seed=22)
+    kw = dict(mu=3.0, eps=1e-5, max_iter=max_iter, n_edge=g.n_edge)
+    want = admm_kernel.admm_decode_plain(llr, t, **kw)
+    for threads in ADMM_THREADS + [None]:             # None: the rule's
+        before = admm_kernel.admm_decode_cuda.launches
+        got = admm_kernel.admm_decode_cuda(llr, t, threads=threads, **kw)
+        torch.cuda.synchronize()
+        assert admm_kernel.admm_decode_cuda.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), threads
+    assert int(want[1].max()) > 30 or name == "7_4_hamming"
 
 
 @pytest.mark.cuda
@@ -304,3 +336,7 @@ def test_admm_kernel_shapes_and_refusals(cuda):
     wide = bp_tables(TannerGraph.from_parity_mtx(H, device=cuda))
     with pytest.raises(ValueError, match="check degree"):
         admm_kernel.admm_decode_cuda(llr[:, :12].contiguous(), wide, **kw)
+    # A geometry the kernel cannot take raises: there is no other route.
+    for threads in (0, 48, 2048):
+        with pytest.raises(ValueError):
+            admm_kernel.admm_decode_cuda(llr, t, threads=threads, **kw)
