@@ -19,7 +19,11 @@ Phases (any failure exits non-zero and prints no result line):
    - SPA (``spa_decode_plain``), both inf policies, bf16 and f32:
      LDPC(1200,3,6) biAWGN at 1.5 and 3.0 dB, LDPC(1200,3,6) BSC p=0.05,
      1200_rho_x5_rand_ldpc_3 BSC p=0.05 with 100 iterations, margulis
-     biAWGN 2.25 dB;
+     biAWGN 2.25 dB; each case (and each SPA ``caps=`` case below) under
+     the thread count the wrapper's rule picks and under every entry of
+     ``SPA_THREADS``. Before them, the bf16 phi table the kernel library
+     fills on the card must equal the plain ``phi`` on all its 7,561
+     inputs;
    - erasure SPA (``bec_spa_decode_plain``): LDPC(1200,3,6) at p = 0.45,
      0.375 and 0.3 with caps 10 and 100 and in converge mode (bound
      2000), 1200_rho_x5_rand_ldpc_3 (padded slots) at p=0.4 cap 100,
@@ -88,22 +92,30 @@ Phases (any failure exits non-zero and prints no result line):
    ``plain_batch`` and ``ms_at_plain_batch`` in the ``kernels`` line:
    measured, not scaled). Each kernel is also held bit-equal to its plain
    version at this shape. Both ADMM inputs are also timed under every
-   entry of ``ADMM_THREADS`` (one line each); their ``kernels`` entries
-   carry ``threads``, the count per word that the rule picked and that
-   ``ms`` was measured under.
+   entry of ``ADMM_THREADS`` (one line each), and the two SPA bf16 2.5 dB
+   inputs and margulis (biAWGN 2.25 dB, bf16, reference policy, the kernel
+   alone) under every entry of ``SPA_THREADS``; the ADMM and SPA
+   ``kernels`` entries carry ``threads``, the count per word that the rule
+   picked and that ``ms`` was measured under.
 
 The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
 bytes it must move (input read once, K output planes and the iteration
 counts written once) over 3.35 TB/s, and its operations over 67 TFLOP/s
 (the float32 rate outside the tensor cores; the erasure kernel's integer
-operations are held to the same rate). Operations are counted for this
-run's data: the sum of the words' iteration counts times the edges of the
-graph times ``OPS_PER_EDGE_ITER`` arithmetic operations of the algorithm
-per edge and iteration (a transcendental counts as one). ADMM's count
-depends on the data twice over: ``admm_ops`` takes the updates the words
-needed and the check rows whose projection needed the bracket search, as
-counted on the plain version's run over the same input. No single PyTorch call
-computes a whole BP or ADMM decode, so ``library_ms`` is null.
+operations are held to the same rate); for the SPA kernels also their
+special-function operations over the card's special-function units (16
+results per SM per clock, at the SM clock ``nvidia-smi`` reports as
+``clocks.max.sm``). Operations are counted for this run's data: the sum
+of the words' iteration counts times the edges of the graph times
+``OPS_PER_EDGE_ITER`` arithmetic operations of the algorithm per edge and
+iteration (a transcendental counts as one), and for SPA times
+``SFU_OPS_PER_PHI`` (one exp2 and two log2) per phi that is not a table
+lookup: one per edge and iteration with bf16 messages, whose input phi is
+a lookup, two with f32 messages. ADMM's count depends on the data twice
+over: ``admm_ops`` takes the updates the words needed and the check rows
+whose projection needed the bracket search, as counted on the plain
+version's run over the same input. No single PyTorch call computes a
+whole BP or ADMM decode, so ``library_ms`` is null.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -139,6 +151,10 @@ F32_OPS_PER_S = 67e12
 # pass + variable pass; a transcendental counts as one operation).
 OPS_PER_EDGE_ITER = {"msa_decode": 12, "spa_decode": 20,
                      "spa_ref_decode": 30, "bec_decode": 6}
+# Special-function results per SM and clock (Hopper), and the least a phi
+# that is not a table lookup needs of them: one exp2 and two log2.
+SFU_PER_SM_CLOCK = 16
+SFU_OPS_PER_PHI = 3
 ADMM_KW = dict(mu=3.0, eps=1e-5)
 MAR_CAP = 8000          # the MAR goldens' bound on a run to convergence
 B_MAR = 2048
@@ -146,6 +162,8 @@ B_MAR_PLAIN = 128
 # Threads per word every ADMM case is also run under, beside the count the
 # wrapper's rule picks.
 ADMM_THREADS = (32, 128, 256, 320, 512, 704, 1024)
+# Threads per word every SPA case is also run under.
+SPA_THREADS = (32, 128, 192, 256, 320, 384, 448, 512, 640, 1024)
 
 
 def admm_ops(word_iterations: int, bracket_rows: int, n_edge: int,
@@ -178,6 +196,17 @@ def ac_var(w: float, t: int) -> float:
     """Agresti-Coull adjusted binomial variance of an observed rate."""
     p = (w * t + 2.0) / (t + 4.0)
     return p * (1.0 - p) / (t + 4.0)
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
 def card_line() -> str:
@@ -222,6 +251,8 @@ def main() -> None:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(card, flush=True)
+    sfu_per_s = (SFU_PER_SM_CLOCK * sm_clock_hz()
+                 * torch.cuda.get_device_properties(0).multi_processor_count)
     print(f"device: {name} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
@@ -322,16 +353,16 @@ def main() -> None:
             fail(f"{kname} kernel != plain on {code_name} {channel} {param} "
                  f"({desc})")
         max_err[kname] = max(max_err[kname], err)
-        if kname.startswith("admm"):
-            for threads in ADMM_THREADS:
-                err = max_abs_diff(cuda_fn(llr, t, threads=threads, **kw),
-                                   out_p)
-                if err:
-                    fail(f"{kname} kernel != plain on {code_name} {channel} "
-                         f"{param} ({desc}) at {threads} threads per word: "
-                         f"{err}")
-            print(f"  and at {len(ADMM_THREADS)} more thread counts: "
-                  f"max_abs_err=0", flush=True)
+        more = (ADMM_THREADS if kname.startswith("admm") else
+                SPA_THREADS if kname.startswith("spa") else ())
+        for threads in more:
+            err = max_abs_diff(cuda_fn(llr, t, threads=threads, **kw), out_p)
+            if err:
+                fail(f"{kname} kernel != plain on {code_name} {channel} "
+                     f"{param} ({desc}) at {threads} threads per word: {err}")
+        if more:
+            print(f"  and at {len(more)} more thread counts: max_abs_err=0",
+                  flush=True)
 
     msa_cases = [(FLAG, "biawgn", 1.5, False), (FLAG, "biawgn", 3.0, False),
                  ("1200_rho_x5_rand_ldpc_1", "biawgn", 2.0, False),
@@ -352,6 +383,11 @@ def main() -> None:
         xp, ip = plain_fn(inp, t, max_iter=CAPS[-1], caps=CAPS, **kw)
         torch.cuda.synchronize()
         err = max(int((xs - xp).abs().max()), int((its - ip).abs().max()))
+        for threads in SPA_THREADS if kname.startswith("spa") else ():
+            xt, it_t = cuda_fn(inp, t, max_iter=CAPS[-1], caps=CAPS,
+                               threads=threads, **kw)
+            err = max(err, int((xt - xp).abs().max()),
+                      int((it_t - ip).abs().max()))
         for k, cap in enumerate(CAPS):
             x1, i1 = cuda_fn(inp, t, max_iter=cap, **kw)
             err = max(err, int((xs[k] - x1).abs().max()),
@@ -366,6 +402,19 @@ def main() -> None:
             fail(f"{kname} caps= kernel != plain or != the single-cap "
                  f"kernel on {code_name} {channel} {param} ({desc})")
         max_err[kname + "_caps"] = max(max_err[kname + "_caps"], err)
+
+    # The bf16 phi table on the card against the plain phi, entry for entry.
+    dev_tab = spa_kernel.phi_table_cuda("cuda")
+    plain_tab = spa_kernel.phi_table_plain("cuda")
+    torch.cuda.synchronize()
+    tab_err = float((dev_tab - plain_tab).abs().max())
+    tab_bits = int((dev_tab.view(torch.int32)
+                    != plain_tab.view(torch.int32)).sum())
+    print(f"check spa phi table: {dev_tab.numel()} entries, max_abs_err="
+          f"{tab_err}, entries differing in their bits={tab_bits}",
+          flush=True)
+    if tab_err or tab_bits or not bool(torch.isfinite(dev_tab).all()):
+        fail("the device phi table != the plain phi")
 
     spa_cases = [(FLAG, "biawgn", 1.5, False, 10),
                  (FLAG, "biawgn", 3.0, False, 10),
@@ -755,11 +804,38 @@ def main() -> None:
         running = step_no[:, None] < updates[None, :]
         return int(updates.sum()), int((per_iter * running).sum())
 
-    def rule_threads(code_name):
-        """Threads per word of the wrapper's own launches on this graph."""
+    def rule_threads(code_name, msg_dtype=None):
+        """Threads per word of the wrapper's own launches on this graph:
+        ADMM's, or with ``msg_dtype`` SPA's."""
         g = tab(code_name)[0].graph
-        return admm_kernel.admm_geometry(g.n_chk, g.n_var,
-                                         g.max_chk_deg).threads
+        if msg_dtype is None:
+            return admm_kernel.admm_geometry(g.n_chk, g.n_var,
+                                             g.max_chk_deg).threads
+        return spa_kernel.spa_geometry(g.n_chk, g.n_var, g.max_chk_deg,
+                                       msg_dtype == bf16).threads
+
+    def time_spa_geometries(label, code_name, llr, kw, want):
+        """One line per entry of ``SPA_THREADS``: the decode's time under
+        it (CUDA events, the better of two), its outputs held equal to
+        ``want``."""
+        _, t = tab(code_name)
+        for threads in SPA_THREADS:
+            ms = []
+            for _ in range(2):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = spa_kernel.spa_decode_cuda(llr, t, threads=threads,
+                                                 **kw)
+                stop.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(stop))
+            if max_abs_diff(out, want):
+                fail(f"spa_decode at {threads} threads per word != at the "
+                     f"rule's count ({label})")
+            print(f"timing {label} at {threads} threads per word: decode "
+                  f"{min(ms):.4f} ms at B={llr.shape[0]} | {card}",
+                  flush=True)
 
     def time_admm_geometries(label, code_name, llr, kw, want):
         """One line per entry of ``ADMM_THREADS``: the decode's time
@@ -860,6 +936,11 @@ def main() -> None:
                      * OPS_PER_EDGE_ITER[kname])
         bound = {"bytes": 1e3 * n_bytes / HBM_BYTES_PER_S,
                  "operations": 1e3 * n_ops / F32_OPS_PER_S}
+        is_spa = kname.startswith("spa")
+        if is_spa:
+            phi_calls = 1 if kw["msg_dtype"] == bf16 else 2
+            bound["sfu"] = (1e3 * int(ik.sum()) * code.graph.n_edge
+                            * phi_calls * SFU_OPS_PER_PHI / sfu_per_s)
         bound_by = max(bound, key=bound.get)
         reps = {"kernel": 10 if caps else 20,
                 "plain": 1 if caps or is_admm else 3}
@@ -888,16 +969,19 @@ def main() -> None:
         else:
             line += (f"; step cw/s kernel {max(cws['kernel']):.1f} vs plain "
                      f"{max(cws['plain']):.1f}")
+        terms = ", ".join(f"{k} {v:.4f} ms" for k, v in bound.items())
         print(f"{line}; mean iterations {float(ik.float().mean()):.3f}; "
-              f"bound {bound[bound_by]:.4f} ms by {bound_by} (bytes "
-              f"{bound['bytes']:.4f} ms, operations "
-              f"{bound['operations']:.4f} ms) | {card}", flush=True)
+              f"bound {bound[bound_by]:.4f} ms by {bound_by} ({terms}) | "
+              f"{card}", flush=True)
         entry = {"ms": best["kernel"], "plain_ms": best["plain"],
                  "bound_ms": bound[bound_by], "bound_by": bound_by,
                  "library_ms": None}
         if is_admm:
             time_admm_geometries(label, code_name, llr, kw, out_k)
-            entry["threads"] = rule_threads(code_name)
+        if is_spa and "2.5 dB" in label:
+            time_spa_geometries(label, code_name, llr, kw, out_k)
+        if is_admm or is_spa:
+            entry["threads"] = rule_threads(code_name, kw.get("msg_dtype"))
         return entry
 
     msa_kw = dict(check_init=False, msg_dtype=bf16)
@@ -932,6 +1016,26 @@ def main() -> None:
     time_case("spa_ref_decode", "spa reference f32 bsc 0.05", FLAG, "bsc",
               0.05, dict(max_iter=10, check_init=True, msg_dtype=f32,
                          inf_policy="reference"), 0)
+
+    def time_spa_margulis():
+        """margulis, biAWGN 2.25 dB, bf16, reference policy, B=16384: the
+        kernel at the rule's thread count (held to the plain version at
+        this shape) and under every entry of ``SPA_THREADS``."""
+        _, t = tab("margulis")
+        kw = dict(ref_kw, max_iter=10)
+        llr = seeded_llr("margulis", "biawgn", 2.25, B_STEP, seed=3)
+        want = spa_kernel.spa_decode_cuda(llr, t, **kw)
+        if max_abs_diff(want, spa_kernel.spa_decode_plain(llr, t, **kw)):
+            fail("spa_ref_decode kernel != plain on the margulis timing "
+                 "batch")
+        label = "spa reference bf16 margulis biawgn 2.25 dB"
+        print(f"check spa_ref_decode {label}: B={B_STEP} max_abs_err=0; "
+              f"rule {rule_threads('margulis', bf16)} threads "
+              f"per word; mean iterations {float(want[1].float().mean()):.3f}",
+              flush=True)
+        time_spa_geometries(label, "margulis", llr, kw, want)
+
+    time_spa_margulis()
     timed["admm_decode"] = time_case(
         "admm_decode", "admm biawgn 2.5 dB cap 50", FLAG, "biawgn", 2.5,
         admm_kw(FLAG, 50), 1)
@@ -1010,7 +1114,8 @@ def main() -> None:
                 "plain_ms": best["plain"], "plain_batch": B_MAR_PLAIN,
                 "ms_at_plain_batch": best["kernel_head"],
                 "bound_ms": bound[bound_by], "bound_by": bound_by,
-                "library_ms": None, "threads": rule_threads("margulis")}
+                "library_ms": None,
+                "threads": rule_threads("margulis")}
 
     timed["admm_decode_margulis"] = time_margulis()
 

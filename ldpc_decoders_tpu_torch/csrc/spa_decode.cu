@@ -49,6 +49,17 @@
 // division and no FMA contraction (__fmul_rn / __fdiv_rn / __fadd_rn), in
 // the same order as the plain version's torch ops.
 //
+// The input phi of bf16 messages is a table. A v2c message is rounded to
+// bf16, so its clipped magnitude cl is either PHI_EPS or one of the 7,560
+// bf16 numbers 0x2491..0x4218 (bit patterns of the top half of a float32)
+// in (PHI_EPS, 38]. spa_phi_table_fill computes phi on exactly those
+// 7,561 inputs with the same __device__ phi, so a lookup is bit-equal to
+// the call by construction. Entry i holds phi of the float32 whose top 16
+// bits are kTabFirst + i and whose low 16 bits are 0, except entry 0,
+// which holds phi(PHI_EPS): PHI_EPS's own top bits are kTabFirst, so the
+// index (bits(cl) >> 16) - kTabFirst needs no branch. f32 messages take
+// any float32 magnitude and keep calling phi.
+//
 // Design. Each CTA keeps its word's state in shared memory for the whole
 // loop: priors and (encoded) marginals, [V] f32 each, and c2v, [Dc][C]
 // f32, slot-major (~24 KB at LDPC(1200,3,6), ~52.8 KB at margulis, which
@@ -57,16 +68,31 @@
 // the row's ph and prefix sums in registers (kMaxD, a compile-time bound
 // on Dc, so the unrolled arrays stay in registers; wider rows are
 // refused), writes the new c2v, and folds the row's parity into the CTA's
-// exit vote (__syncthreads_or).
-// Edge tables are shared by all CTAs and stay in L1/L2.
+// exit vote (__syncthreads_or). Each row is owned by one thread, each
+// variable sums its slots in slot order and the vote is an exact OR, so
+// no output depends on the number of threads: the wrapper sets it from
+// the graph (ops/spa_kernel.py:spa_geometry).
+// Edge tables and the phi table are shared by all CTAs and stay in L1/L2.
 //
-// What bounds it on the card: the transcendentals. Each check of degree
-// Dc evaluates 2*Dc phi (one exp and two log1p, or a log, each), against
-// the min-sum kernel's compares; shared-memory traffic is the min-sum
-// kernel's plus the f32 c2v.
+// What bounds it on the card (scripts/profile_spa_kernel.py on an H100):
+// the check pass's arithmetic, not device memory. With bf16 messages the
+// input phi is a lookup (~3% of an iteration at thread 0); the output phi,
+// Dc per row, takes about a third: both of phi's forms are inlined (exp:
+// expf and two log1pf; series: logf and two IEEE divisions), logf and
+// log1pf are polynomials on the FMA pipe (the SFU gives one ex2 or two
+// rcp per phi), and at ~90% of the calls a warp's lanes fall on both sides
+// of 0.1 and run both forms. The rest of the check pass (index loads,
+// gathers, bf16 roundings, sentinel classes) takes ~35-40% and the
+// variable pass ~20%; the vote barrier 2-4%. Not kept, measured slower: a
+// warp that lists its outputs by form and runs each list 32 at a time
+// (the lists cost more than the second form), a copy of the phi table in
+// shared memory per word (fewer words per SM), and template flags that
+// drop the padding tests on graphs without padded slots.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -82,6 +108,11 @@ constexpr float kNanMin = 1.5e9f;
 // repository have check degree <= 6).
 constexpr int kMaxD = 8;
 constexpr int kMaxCaps = 16;
+// The bf16 phi table: top 16 bits of float32(PHI_EPS) (entry 0) up to
+// those of 38.0f.
+constexpr unsigned kTabFirst = 0x2490u;
+constexpr unsigned kTabLast = 0x4218u;
+constexpr int kTabSize = static_cast<int>(kTabLast - kTabFirst) + 1;  // 7561
 
 struct Caps {
   int n;
@@ -114,6 +145,21 @@ __device__ __forceinline__ float phi(float x) {
   return __fsub_rn(log1pf(ex), log1pf(-ex));
 }
 
+// The input of table entry i (the module note above).
+__device__ __forceinline__ float tab_input(int i) {
+  return i == 0 ? kPhiEps : __uint_as_float((kTabFirst + i) << 16);
+}
+
+// The input phi of a clipped bf16 magnitude cl, read from the table.
+__device__ __forceinline__ float tab_at(const float* tab, float cl) {
+  return __ldg(tab + ((__float_as_uint(cl) >> 16) - kTabFirst));
+}
+
+__global__ void phi_table_kernel(float* __restrict__ tab) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < kTabSize) tab[i] = phi(tab_input(i));
+}
+
 __device__ __forceinline__ bool nan_class(float v) { return v > kNanMin; }
 __device__ __forceinline__ bool pinf_class(float v) {
   return v > kInfMin && v <= kNanMin;
@@ -137,15 +183,18 @@ __device__ __forceinline__ float rebuild_v2c(float marg, float c2v) {
 
 // llr [B, V] f32; chk_var [Dc][C]: variable of check slot (c, d), -1 if
 // padded; var_slot [Dv][V]: index d*C + c of variable slot (v, s) in the
-// slot-major c2v, -1 if padded. Outputs x_out [K][B][V] int32, it_out [B].
+// slot-major c2v, -1 if padded; phi_tab [kTabSize] (bf16 only). Outputs
+// x_out [K][B][V] int32, it_out [B].
 template <typename MsgT, bool kRef>
 __global__ void spa_decode_kernel(const float* __restrict__ llr,
                                   const int* __restrict__ chk_var,
                                   const int* __restrict__ var_slot,
+                                  const float* __restrict__ phi_tab,
                                   int* __restrict__ x_out,
                                   int* __restrict__ it_out, int B, int C,
                                   int V, int Dc, int Dv, int max_iter,
                                   int check_init, Caps caps) {
+  constexpr bool kTab = std::is_same<MsgT, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_llr = reinterpret_cast<float*>(smem);
   float* s_marg = s_llr + V;  // kRef: the class-encoded marginal
@@ -193,10 +242,15 @@ __global__ void spa_decode_kernel(const float* __restrict__ llr,
               const bool fin = !(nn || pi || ni);
               nan_row |= nn;
               if (pi || ni || mag >= kLlrClip) sat |= 1u << d;
-              if (fin && mag < kLlrClip) ph[d] = phi(cl);
+              if (kTab) {
+                const float t = tab_at(phi_tab, cl);
+                ph[d] = (fin && mag < kLlrClip) ? t : 0.f;
+              } else if (fin && mag < kLlrClip) {
+                ph[d] = phi(cl);
+              }
               if ((fin && p < 0.f) || ni) neg |= 1u << d;
             } else {
-              ph[d] = phi(cl);
+              ph[d] = kTab ? tab_at(phi_tab, cl) : phi(cl);
               if (p < 0.f) neg |= 1u << d;
             }
           }
@@ -281,9 +335,9 @@ __global__ void spa_decode_kernel(const float* __restrict__ llr,
 
 template <typename MsgT, bool kRef>
 cudaError_t launch(const float* llr, const int* chk_var, const int* var_slot,
-                   int* x_out, int* it_out, int B, int C, int V, int Dc,
-                   int Dv, int max_iter, int check_init, const Caps& caps,
-                   int threads, cudaStream_t stream) {
+                   const float* phi_tab, int* x_out, int* it_out, int B,
+                   int C, int V, int Dc, int Dv, int max_iter, int check_init,
+                   const Caps& caps, int threads, cudaStream_t stream) {
   const size_t smem = (2 * static_cast<size_t>(V) +
                        static_cast<size_t>(Dc) * C) * sizeof(float);
   auto kernel = spa_decode_kernel<MsgT, kRef>;
@@ -293,23 +347,36 @@ cudaError_t launch(const float* llr, const int* chk_var, const int* var_slot,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<B, threads, smem, stream>>>(llr, chk_var, var_slot, x_out, it_out,
-                                       B, C, V, Dc, Dv, max_iter, check_init,
-                                       caps);
+  kernel<<<B, threads, smem, stream>>>(llr, chk_var, var_slot, phi_tab, x_out,
+                                       it_out, B, C, V, Dc, Dv, max_iter,
+                                       check_init, caps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+extern "C" int spa_phi_table_size() { return kTabSize; }
+
+// Fills phi_tab [kTabSize] f32 on the given stream.
+extern "C" int spa_phi_table_fill(void* phi_tab, void* stream) {
+  constexpr int kThreads = 256;
+  phi_table_kernel<<<(kTabSize + kThreads - 1) / kThreads, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(phi_tab));
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int spa_decode_launch(const void* llr, const void* chk_var,
-                                 const void* var_slot, void* x_out,
-                                 void* it_out, int B, int C, int V, int Dc,
-                                 int Dv, int max_iter, int check_init,
-                                 int bf16, int ref, const int* caps,
-                                 int n_caps, int threads, void* stream) {
+                                 const void* var_slot, const void* phi_tab,
+                                 void* x_out, void* it_out, int B, int C,
+                                 int V, int Dc, int Dv, int max_iter,
+                                 int check_init, int bf16, int ref,
+                                 const int* caps, int n_caps, int threads,
+                                 void* stream) {
   if (B == 0) return static_cast<int>(cudaSuccess);
   if (Dc > kMaxD || n_caps < 1 || n_caps > kMaxCaps ||
-      caps[n_caps - 1] != max_iter) {
+      caps[n_caps - 1] != max_iter || threads % 32 != 0 ||
+      (bf16 && phi_tab == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Caps cp;
@@ -318,21 +385,22 @@ extern "C" int spa_decode_launch(const void* llr, const void* chk_var,
   const auto* l = static_cast<const float*>(llr);
   const auto* cv = static_cast<const int*>(chk_var);
   const auto* vs = static_cast<const int*>(var_slot);
+  const auto* tab = static_cast<const float*>(phi_tab);
   auto* x = static_cast<int*>(x_out);
   auto* it = static_cast<int*>(it_out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (bf16) {
-    e = ref ? launch<__nv_bfloat16, true>(l, cv, vs, x, it, B, C, V, Dc, Dv,
-                                          max_iter, check_init, cp, threads,
-                                          s)
-            : launch<__nv_bfloat16, false>(l, cv, vs, x, it, B, C, V, Dc, Dv,
-                                           max_iter, check_init, cp, threads,
-                                           s);
+    e = ref ? launch<__nv_bfloat16, true>(l, cv, vs, tab, x, it, B, C, V, Dc,
+                                          Dv, max_iter, check_init, cp,
+                                          threads, s)
+            : launch<__nv_bfloat16, false>(l, cv, vs, tab, x, it, B, C, V, Dc,
+                                           Dv, max_iter, check_init, cp,
+                                           threads, s);
   } else {
-    e = ref ? launch<float, true>(l, cv, vs, x, it, B, C, V, Dc, Dv,
+    e = ref ? launch<float, true>(l, cv, vs, nullptr, x, it, B, C, V, Dc, Dv,
                                   max_iter, check_init, cp, threads, s)
-            : launch<float, false>(l, cv, vs, x, it, B, C, V, Dc, Dv,
+            : launch<float, false>(l, cv, vs, nullptr, x, it, B, C, V, Dc, Dv,
                                    max_iter, check_init, cp, threads, s);
   }
   return static_cast<int>(e);

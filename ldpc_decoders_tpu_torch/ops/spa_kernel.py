@@ -36,16 +36,36 @@ Both routes follow the Pallas kernels' semantics:
 ``phi`` divides ``x * x`` by a 0-dim device tensor, not a Python scalar:
 on CUDA torch divides by a host scalar as a multiply by its reciprocal,
 which rounds differently from the kernel's IEEE division.
+
+With bf16 messages the kernel reads the input phi from a table of phi over
+the 7,561 values a clipped bf16 magnitude can take (``phi_table_inputs``,
+indexed by ``phi_table_index``), which the kernel's own ``phi`` fills on
+the device at first use (``phi_table_cuda``, one per device). The plain
+version keeps calling ``phi``: it is the specification the table is held
+against.
+
+The launch geometry is the wrapper's own choice, by ``spa_geometry`` from
+the graph and the message type; callers have no flag for it. ``spa_decode_cuda(threads=...)``
+forces a thread count, for tests and measurements; a geometry the card
+cannot take raises. The outputs do not depend on it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from ldpc_decoders_tpu_torch.ops._build import load_library
+from ldpc_decoders_tpu_torch.ops.admm_kernel import (
+    MAX_THREADS,
+    SMEM_PER_CTA,
+    SMEM_PER_SM,
+    SMEM_RESERVED,
+    WARP,
+)
 from ldpc_decoders_tpu_torch.ops.caps import (
     caps_array,
     check_caps,
@@ -57,7 +77,7 @@ from ldpc_decoders_tpu_torch.ops.graph import (
     exclusive_sum,
     syndrome_ok,
 )
-from ldpc_decoders_tpu_torch.ops.msa_kernel import MSG_DTYPES, THREADS
+from ldpc_decoders_tpu_torch.ops.msa_kernel import MSG_DTYPES
 
 # float32 phi-domain guards (decoders/bp.py of the JAX package): phi is its
 # own inverse, so clipping its argument to [PHI_EPS, LLR_CLIP] with
@@ -73,6 +93,20 @@ _INF_MIN = 5e8
 _NAN_MIN = 1.5e9
 INF_POLICIES = ("reference", "saturate")
 MAX_CHK_DEG = 8         # kMaxD of csrc/spa_decode.cu
+# The bf16 phi table (kTabFirst, kTabLast): entry 0 is phi(PHI_EPS), whose
+# float32 has these top 16 bits; entry i > 0 is phi of the bf16 number with
+# bit pattern PHI_TAB_FIRST + i, up to bf16(LLR_CLIP).
+PHI_TAB_FIRST = 0x2490
+PHI_TAB_LAST = 0x4218
+PHI_TAB_SIZE = PHI_TAB_LAST - PHI_TAB_FIRST + 1        # 7561
+# Warps per word (one CTA; a thread owns a check row): the few that keep
+# an SM full, and more where a word's check pass is longer (f32 messages:
+# two phi per edge) or an SM holds too few words by shared memory to fill
+# its RESIDENT_WARPS, about what the kernel's 39-47 registers a thread let
+# it hold. Set by ``scripts/profile_spa_kernel.py``'s sweep on an H100.
+WORD_WARPS = 8
+WORD_WARPS_MORE = 12
+RESIDENT_WARPS = 48
 
 
 def phi(x: torch.Tensor) -> torch.Tensor:
@@ -86,6 +120,29 @@ def phi(x: torch.Tensor) -> torch.Tensor:
            + x * x / torch.full((), 12.0, dtype=torch.float32,
                                   device=x.device))
     return torch.where(small, ser, big)
+
+
+def phi_table_inputs(device=None) -> torch.Tensor:
+    """The float32 inputs of the bf16 phi table, in entry order: PHI_EPS,
+    then every bf16 number in (PHI_EPS, LLR_CLIP]."""
+    top = torch.arange(PHI_TAB_FIRST + 1, PHI_TAB_LAST + 1,
+                       dtype=torch.int32, device=device)
+    return torch.cat([torch.full((1,), PHI_EPS, dtype=torch.float32,
+                                 device=device),
+                      (top << 16).view(torch.float32)])
+
+
+def phi_table_index(cl: torch.Tensor) -> torch.Tensor:
+    """The kernel's table index of a clipped magnitude cl (float32): PHI_EPS
+    or a bf16 number in (PHI_EPS, LLR_CLIP]. No branch: PHI_EPS's top 16
+    bits are PHI_TAB_FIRST."""
+    return (cl.view(torch.int32) >> 16) - PHI_TAB_FIRST
+
+
+def phi_table_plain(device=None) -> torch.Tensor:
+    """The table as the plain ``phi`` computes it: what the device table
+    must equal bit for bit."""
+    return phi(phi_table_inputs(device))
 
 
 def spa_check_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -203,12 +260,54 @@ def spa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
     return fill_planes(x_hats, x_hat.to(torch.int32), caps), iters
 
 
+class Geometry(NamedTuple):
+    """How a decode is launched: ``threads`` per word (one CTA) and the
+    word's shared memory in bytes."""
+    threads: int
+    smem_bytes: int
+
+
+def make_geometry(C: int, V: int, Dc: int, threads: int) -> Geometry:
+    """``threads`` per word on a [C, Dc] graph with V variables, or
+    ValueError where the kernel or the card cannot take it."""
+    if Dc > MAX_CHK_DEG:
+        raise ValueError(f"check degree {Dc} > {MAX_CHK_DEG}: the kernel "
+                         "keeps a check row in registers")
+    if threads % WARP or not WARP <= threads <= MAX_THREADS:
+        raise ValueError(f"threads per word must be a multiple of {WARP} "
+                         f"in [{WARP}, {MAX_THREADS}], got {threads}")
+    smem = 4 * (2 * V + Dc * C)     # llr and marg [V], c2v [Dc, C], f32
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"a word needs {smem} bytes of shared memory, an SM "
+                         f"gives a CTA {SMEM_PER_CTA}")
+    return Geometry(threads, smem)
+
+
+def spa_geometry(C: int, V: int, Dc: int, bf16: bool) -> Geometry:
+    """The wrapper's rule: one warp per run of 32 check rows, up to
+    ``WORD_WARPS`` warps, or ``WORD_WARPS_MORE`` where the messages are
+    f32 or ``WORD_WARPS`` each would leave an SM, by the words its shared
+    memory holds, under ``RESIDENT_WARPS``. LDPC(1200,3,6) (24 KB a word, 9
+    words an SM) gets 256 threads in bf16 and 384 in f32; margulis (52.8
+    KB, 4 words) 384; Hamming(7,4) one warp. Measured on an H100 with
+    ``scripts/profile_spa_kernel.py``: on LDPC(1200,3,6) 256 threads beat
+    384 by 1.5-2.6% in bf16 and lose by 2.5% in f32; on margulis 384 beat
+    256 by 9%."""
+    words = SMEM_PER_SM // (make_geometry(C, V, Dc, WARP).smem_bytes
+                            + SMEM_RESERVED)
+    warps = (WORD_WARPS if bf16 and words * WORD_WARPS >= RESIDENT_WARPS
+             else WORD_WARPS_MORE)
+    return make_geometry(C, V, Dc, WARP * min(-(-C // WARP), warps))
+
+
 def spa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                     check_init: bool, msg_dtype: torch.dtype,
-                    inf_policy: str,
-                    caps: Optional[Sequence[int]] = None) -> tuple:
-    """Launch ``csrc/spa_decode.cu`` on the current stream (no sync).
-    Counts launches per policy: single-cap in ``spa_decode_cuda.launches``,
+                    inf_policy: str, caps: Optional[Sequence[int]] = None,
+                    threads: Optional[int] = None) -> tuple:
+    """Launch ``csrc/spa_decode.cu`` on the current stream (no sync), at
+    the geometry ``spa_geometry`` picks for this graph. ``threads`` forces
+    a thread count per word; it is for tests and measurements. Counts
+    launches per policy: single-cap in ``spa_decode_cuda.launches``,
     ``caps=`` in ``spa_decode_cuda.launches_caps``."""
     _check_policy(inf_policy)
     snaps = check_caps(caps, max_iter)
@@ -222,9 +321,9 @@ def spa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
     Dv, V = t.k_var_slot.shape
     if llr.shape[1] != V:
         raise ValueError(f"llr has {llr.shape[1]} variables, graph has {V}")
-    if Dc > MAX_CHK_DEG:
-        raise ValueError(f"check degree {Dc} > {MAX_CHK_DEG}: the kernel "
-                         "keeps a check row in registers")
+    bf16 = msg_dtype == torch.bfloat16
+    geo = (spa_geometry(C, V, Dc, bf16) if threads is None
+           else make_geometry(C, V, Dc, threads))
     for tab in (t.k_chk_var, t.k_var_slot):
         if (tab.device != llr.device or tab.dtype != torch.int32
                 or not tab.is_contiguous()):
@@ -232,6 +331,7 @@ def spa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                              "device of llr")
     cap_arr = caps_array(snaps)
     lib = _kernel_library()
+    phi_tab = phi_table_cuda(llr.device).data_ptr() if bf16 else None
     B = llr.shape[0]
     x_hats = torch.empty((len(snaps), B, V), dtype=torch.int32,
                          device=llr.device)
@@ -240,14 +340,15 @@ def spa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
     with torch.cuda.device(llr.device):
         rc = lib.spa_decode_launch(
             llr.data_ptr(), t.k_chk_var.data_ptr(), t.k_var_slot.data_ptr(),
-            x_hats.data_ptr(), iters.data_ptr(), B, C, V, Dc, Dv,
-            int(max_iter), int(bool(check_init)),
-            int(msg_dtype == torch.bfloat16),
-            int(inf_policy == "reference"), cap_arr, len(snaps), THREADS,
+            phi_tab, x_hats.data_ptr(), iters.data_ptr(), B, C, V, Dc, Dv,
+            int(max_iter), int(bool(check_init)), int(bf16),
+            int(inf_policy == "reference"), cap_arr, len(snaps), geo.threads,
             stream)
     if rc != 0:
-        raise RuntimeError("spa_decode kernel launch failed: "
-                           + lib.spa_decode_error_string(rc).decode())
+        raise RuntimeError(
+            f"spa_decode kernel launch failed at {geo.threads} threads and "
+            f"{geo.smem_bytes} bytes of shared memory per word: "
+            + lib.spa_decode_error_string(rc).decode())
     if caps is None:
         spa_decode_cuda.launches[inf_policy] += 1
         return x_hats[0], iters
@@ -259,13 +360,45 @@ spa_decode_cuda.launches = dict.fromkeys(INF_POLICIES, 0)
 spa_decode_cuda.launches_caps = dict.fromkeys(INF_POLICIES, 0)
 
 
+def phi_table_cuda(device) -> torch.Tensor:
+    """The bf16 phi table on a CUDA device, ``PHI_TAB_SIZE`` float32, filled
+    by the kernel library's own ``phi`` at first use and kept for the
+    process."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the phi table lives on a CUDA device, not {device}")
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _phi_table(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _phi_table(index: int) -> torch.Tensor:
+    lib = _kernel_library()
+    device = torch.device("cuda", index)
+    tab = torch.empty((lib.spa_phi_table_size(),), dtype=torch.float32,
+                      device=device)
+    with torch.cuda.device(device):
+        rc = lib.spa_phi_table_fill(
+            tab.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError("spa_phi_table_fill launch failed: "
+                               + lib.spa_decode_error_string(rc).decode())
+        torch.cuda.synchronize(device)      # a fault in the fill raises here
+    return tab
+
+
 def _kernel_library() -> ctypes.CDLL:
     lib = load_library("spa_decode")
     if lib.spa_decode_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.spa_decode_launch.argtypes = ([p, p, p, p, p] + [i] * 9
+        lib.spa_decode_launch.argtypes = ([p] * 6 + [i] * 9
                                           + [ctypes.POINTER(i), i, i, p])
         lib.spa_decode_launch.restype = i
+        lib.spa_phi_table_fill.argtypes = [p, p]
+        lib.spa_phi_table_fill.restype = i
+        lib.spa_phi_table_size.argtypes = []
+        lib.spa_phi_table_size.restype = i
         lib.spa_decode_error_string.argtypes = [i]
         lib.spa_decode_error_string.restype = ctypes.c_char_p
     return lib

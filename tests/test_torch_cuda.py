@@ -101,6 +101,54 @@ def test_spa_kernel_bit_equal_plain(cuda, name, channel, param, check_init,
         int((xk != xp).any(dim=1).sum()), int((ik != ip).sum()))
 
 
+# Threads per word: one warp, counts that are no power of two, the most.
+SPA_THREADS = [32, 96, 192, 256, 320, 448, 640, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,channel,param,check_init,max_iter,msg_dtype", [
+    ("1200_3_6_ldpc", "biawgn", 2.0, False, 10, "bfloat16"),
+    ("1200_3_6_ldpc", "bsc", 0.05, True, 10, "float32"),
+    ("1200_rho_x5_rand_ldpc_3", "bsc", 0.05, True, 100, "float32"),
+    ("margulis", "biawgn", 2.25, False, 10, "bfloat16"),
+    ("7_4_hamming", "biawgn", 3.0, False, 10, "bfloat16"),
+])
+@pytest.mark.parametrize("policy", ["reference", "saturate"])
+def test_spa_kernel_every_geometry(cuda, name, channel, param, check_init,
+                                   max_iter, msg_dtype, policy):
+    """The outputs do not depend on the threads per word: under each count
+    the kernel equals the plain version bit for bit."""
+    code = get_code(name)
+    t = bp_tables(code.graph.to(cuda))
+    llr = _llr(code, channel, param, 256, cuda, seed=12)
+    kw = dict(max_iter=max_iter, check_init=check_init,
+              msg_dtype=getattr(torch, msg_dtype), inf_policy=policy)
+    xp, ip = spa_kernel.spa_decode_plain(llr, t, **kw)
+    for threads in SPA_THREADS + [None]:              # None: the rule's
+        xk, ik = spa_kernel.spa_decode_cuda(llr, t, threads=threads, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(xk, xp) and torch.equal(ik, ip), threads
+    for threads in (0, 48, 2048):
+        with pytest.raises(ValueError, match="threads per word"):
+            spa_kernel.spa_decode_cuda(llr, t, threads=threads, **kw)
+
+
+@pytest.mark.cuda
+def test_spa_phi_table_equals_plain_phi(cuda):
+    """The bf16 phi table that the kernel library fills on the card equals
+    the plain phi on all its inputs, bit for bit, and is kept per device."""
+    tab = spa_kernel.phi_table_cuda(cuda)
+    assert tab is spa_kernel.phi_table_cuda(cuda)
+    want = spa_kernel.phi_table_plain(cuda)
+    got = tab
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), int(
+        (got != want).sum())
+    assert tab.shape == (spa_kernel.PHI_TAB_SIZE,)
+    with pytest.raises(ValueError, match="CUDA"):
+        spa_kernel.phi_table_cuda("cpu")
+
+
 @pytest.mark.cuda
 def test_spa_kernel_check_init_and_refusals(cuda):
     t = bp_tables(get_code("1200_3_6_ldpc").graph.to(cuda))

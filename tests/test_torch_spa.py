@@ -128,6 +128,95 @@ def test_phi_matches_jax():
         jax_bp.INF_S, jax_bp.NAN_S, jax_bp._INF_MIN, jax_bp._NAN_MIN)
 
 
+def _bf16_patterns():
+    """All 65,536 bf16 bit patterns, as float32."""
+    bits = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32)
+    return (bits << 16).view(torch.float32)
+
+
+def test_phi_table_index_maps_bf16_codes():
+    """The kernel's table index: each bf16 code 0x2491..0x4218 (every bf16
+    number in (PHI_EPS, 38]) to its own entry 1..7560, and every magnitude
+    at or below PHI_EPS, once clipped, to entry 0."""
+    codes = torch.arange(0x2491, 0x4218 + 1, dtype=torch.int32)
+    idx = spa_kernel.phi_table_index((codes << 16).view(torch.float32))
+    assert torch.equal(idx, torch.arange(1, spa_kernel.PHI_TAB_SIZE,
+                                         dtype=torch.int32))
+    assert spa_kernel.PHI_TAB_SIZE == 7561
+    x = _bf16_patterns()
+    x = x[torch.isfinite(x)]
+    cl = x.abs().clamp(bp.PHI_EPS, bp.LLR_CLIP)
+    idx = spa_kernel.phi_table_index(cl)
+    assert int(idx.min()) == 0 and int(idx.max()) == 7560
+    low = x.abs() <= torch.tensor(bp.PHI_EPS, dtype=torch.float32)
+    assert int(low.sum()) > 2 * 0x2490 and (idx[low] == 0).all()
+    assert (idx[~low] > 0).all()
+    tiny = torch.tensor([0.0, -0.0, 1e-45, 1e-30, bp.PHI_EPS, -bp.PHI_EPS])
+    assert (spa_kernel.phi_table_index(
+        tiny.abs().clamp(bp.PHI_EPS, bp.LLR_CLIP)) == 0).all()
+    assert torch.equal(spa_kernel.phi_table_index(
+        spa_kernel.phi_table_inputs()),
+        torch.arange(spa_kernel.PHI_TAB_SIZE, dtype=torch.int32))
+
+
+def test_phi_table_read_through_index_equals_phi():
+    """A table built by the plain phi, read through the kernel's index,
+    equals phi(clip(|p|, PHI_EPS, 38)) bit for bit on every finite bf16
+    pattern p; and the table agrees with the JAX package's phi."""
+    tab = spa_kernel.phi_table_plain()
+    assert tab.shape == (spa_kernel.PHI_TAB_SIZE,) and tab.dtype == \
+        torch.float32
+    p = _bf16_patterns()
+    p = p[torch.isfinite(p)]
+    assert p.numel() == 65536 - 2 * 128      # all but the infs and NaNs
+    cl = p.abs().clamp(bp.PHI_EPS, bp.LLR_CLIP)
+    got = tab[spa_kernel.phi_table_index(cl).long()]
+    want = bp.phi(cl)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    x = spa_kernel.phi_table_inputs().numpy()
+    np.testing.assert_allclose(tab.numpy(),
+                               np.asarray(jax_bp.phi(jnp.asarray(x))),
+                               rtol=RTOL)
+
+
+def _spa_codes():
+    """Every code of the repository that the SPA kernel takes."""
+    names = sorted(f[:-4] for f in os.listdir(os.path.join(ROOT, "data",
+                                                           "codes")))
+    return names + ["7_4_hamming"]
+
+
+def test_spa_geometry_fits_every_code():
+    """The rule's thread count is a warp multiple in [32, 1024], the word's
+    state fits the shared memory an H100 SM gives one CTA, and no more
+    warps run than the check pass needs."""
+    for name in _spa_codes():
+        g = get_code(name).graph
+        C, V, Dc = g.n_chk, g.n_var, g.max_chk_deg
+        assert Dc <= spa_kernel.MAX_CHK_DEG, name
+        for bf16 in (True, False):
+            geo = spa_kernel.spa_geometry(C, V, Dc, bf16)
+            assert geo.threads % 32 == 0 and 32 <= geo.threads <= 1024, name
+            assert geo.smem_bytes <= spa_kernel.SMEM_PER_CTA, name
+            assert geo.smem_bytes >= 4 * (2 * V + Dc * C), name
+            assert geo.threads < C + 32, (name, geo)
+            assert geo == spa_kernel.make_geometry(C, V, Dc, geo.threads)
+    rule = {(n, bf16): spa_kernel.spa_geometry(n_chk, n_var, 6, bf16).threads
+            for n, n_chk, n_var in (("flagship", 600, 1200),
+                                    ("margulis", 1320, 2640))
+            for bf16 in (True, False)}
+    assert rule == {("flagship", True): 256, ("flagship", False): 384,
+                    ("margulis", True): 384, ("margulis", False): 384}
+    assert spa_kernel.spa_geometry(3, 7, 4, True).threads == 32
+    for threads in (0, 48, 2048):
+        with pytest.raises(ValueError, match="threads per word"):
+            spa_kernel.make_geometry(600, 1200, 6, threads)
+    with pytest.raises(ValueError, match="check degree"):
+        spa_kernel.make_geometry(600, 1200, 9, 256)
+    with pytest.raises(ValueError, match="shared memory"):
+        spa_kernel.make_geometry(20000, 40000, 6, 256)
+
+
 @pytest.mark.parametrize("name", ["1200_3_6_ldpc", "1200_rho_x5_rand_ldpc_1"])
 @pytest.mark.parametrize("policy", ["saturate", "reference"])
 def test_spa_check_rows_match_jax(name, policy):
