@@ -79,15 +79,16 @@
 // input phi is a lookup (~3% of an iteration at thread 0); the output phi,
 // Dc per row, takes about a third: both of phi's forms are inlined (exp:
 // expf and two log1pf; series: logf and two IEEE divisions), logf and
-// log1pf are polynomials on the FMA pipe (the SFU gives one ex2 or two
-// rcp per phi), and at ~90% of the calls a warp's lanes fall on both sides
-// of 0.1 and run both forms. The rest of the check pass (index loads,
-// gathers, bf16 roundings, sentinel classes) takes ~35-40% and the
-// variable pass ~20%; the vote barrier 2-4%. Not kept, measured slower: a
-// warp that lists its outputs by form and runs each list 32 at a time
-// (the lists cost more than the second form), a copy of the phi table in
-// shared memory per word (fewer words per SM), and template flags that
-// drop the padding tests on graphs without padded slots.
+// log1pf are polynomials on the FMA pipe (the SASS holds one MUFU.EX2 and
+// one MUFU.RCP per inlined phi, so the SFU is not what bounds it), and at
+// ~90% of the calls a warp's lanes fall on both sides of 0.1 and run both
+// forms. The rest of the check pass (index loads, gathers, bf16 roundings,
+// sentinel classes) takes ~35-40% and the variable pass ~20%; the vote
+// barrier 2-4%. Not kept, measured slower: a warp that lists its outputs
+// by form and runs each list 32 at a time (the lists cost more than the
+// second form), a copy of the phi table in shared memory per word (fewer
+// words per SM), and template flags that drop the padding tests on graphs
+// without padded slots.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -55,30 +55,30 @@ cannot take raises. The outputs do not depend on it.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ldpc_decoders_tpu_torch.ops import geometry
 from ldpc_decoders_tpu_torch.ops._build import load_library
+from ldpc_decoders_tpu_torch.ops.geometry import (
+    MAX_THREADS,
+    WARP,
+    WARPS_PER_SM,
+    Geometry,
+    row_threads,
+    words_per_sm,
+)
 from ldpc_decoders_tpu_torch.ops.graph import BPTables
 from ldpc_decoders_tpu_torch.ops.projection import (
     fold_slots,
     project_parity_polytope,
 )
 
-WARP = 32
 ROW_BLOCK = 8           # check rows per block of the norm sums (kRowBlock)
 MAX_CHK_DEG = 8         # check rows wider than this are refused (kMaxD)
 REGULAR_VAR_DEG = 3     # the kernel's unrolled x-update (kRegularDv)
-MAX_THREADS = 1024      # CUDA threads per codeword (one CTA per word)
-# One H100 SM: the shared memory it gives one CTA (227 KB), what it has
-# for all resident CTAs (228 KB, of which the runtime keeps 1 KB per CTA),
-# and its resident warps.
-SMEM_PER_CTA = 232448
-SMEM_PER_SM = 233472
-SMEM_RESERVED = 1024
-WARPS_PER_SM = 64
 
 
 def _inv_mu(mu: float) -> float:
@@ -120,28 +120,15 @@ def word_sum(rows: torch.Tensor) -> torch.Tensor:
     return _halve(acc, WARP)
 
 
-class Geometry(NamedTuple):
-    """How a decode is launched: ``threads`` per word (one CTA) and the
-    word's shared memory in bytes."""
-    threads: int
-    smem_bytes: int
-
-
 def make_geometry(C: int, V: int, Dc: int, threads: int) -> Geometry:
     """``threads`` per word on a [C, Dc] graph, or ValueError where the
     kernel or the card cannot take it."""
     if Dc > MAX_CHK_DEG:
         raise ValueError(f"check degree {Dc} > {MAX_CHK_DEG} (the kernel "
                          "keeps a check row in registers)")
-    if threads % WARP or not WARP <= threads <= MAX_THREADS:
-        raise ValueError(f"threads per word must be a multiple of {WARP} "
-                         f"in [{WARP}, {MAX_THREADS}], got {threads}")
     # z and lam [Dc, C], x [V] and the 2 * ceil(C / 8) block sums, f32
-    smem = 4 * (2 * Dc * C + V + 2 * -(-C // ROW_BLOCK))
-    if smem > SMEM_PER_CTA:
-        raise ValueError(f"a word needs {smem} bytes of shared memory, an SM "
-                         f"gives a CTA {SMEM_PER_CTA}")
-    return Geometry(threads, smem)
+    return geometry.make_geometry(
+        threads, 4 * (2 * Dc * C + V + 2 * -(-C // ROW_BLOCK)))
 
 
 def admm_geometry(C: int, V: int, Dc: int) -> Geometry:
@@ -155,13 +142,12 @@ def admm_geometry(C: int, V: int, Dc: int) -> Geometry:
     take 16% less time than 8 over eight margulis chunks run to
     convergence and no more than 32; 8 take 9% less than 16 on
     LDPC(1200,3,6)."""
-    words = SMEM_PER_SM // (make_geometry(C, V, Dc, WARP).smem_bytes
-                            + SMEM_RESERVED)
+    words = words_per_sm(make_geometry(C, V, Dc, WARP).smem_bytes)
     warps = 8
     while 2 * warps * WARP <= MAX_THREADS and \
             2 * warps * words <= WARPS_PER_SM:
         warps *= 2
-    return make_geometry(C, V, Dc, WARP * min(-(-C // WARP), warps))
+    return make_geometry(C, V, Dc, row_threads(C, warps))
 
 
 def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,

@@ -54,22 +54,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
+from ldpc_decoders_tpu_torch.ops import geometry
 from ldpc_decoders_tpu_torch.ops._build import load_library
-from ldpc_decoders_tpu_torch.ops.admm_kernel import (
-    MAX_THREADS,
-    SMEM_PER_CTA,
-    SMEM_PER_SM,
-    SMEM_RESERVED,
-    WARP,
-)
 from ldpc_decoders_tpu_torch.ops.caps import (
     caps_array,
     check_caps,
     fill_planes,
+)
+from ldpc_decoders_tpu_torch.ops.geometry import (
+    WARP,
+    Geometry,
+    row_threads,
+    words_per_sm,
 )
 from ldpc_decoders_tpu_torch.ops.graph import (
     BPTables,
@@ -260,27 +260,14 @@ def spa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
     return fill_planes(x_hats, x_hat.to(torch.int32), caps), iters
 
 
-class Geometry(NamedTuple):
-    """How a decode is launched: ``threads`` per word (one CTA) and the
-    word's shared memory in bytes."""
-    threads: int
-    smem_bytes: int
-
-
 def make_geometry(C: int, V: int, Dc: int, threads: int) -> Geometry:
     """``threads`` per word on a [C, Dc] graph with V variables, or
     ValueError where the kernel or the card cannot take it."""
     if Dc > MAX_CHK_DEG:
         raise ValueError(f"check degree {Dc} > {MAX_CHK_DEG}: the kernel "
                          "keeps a check row in registers")
-    if threads % WARP or not WARP <= threads <= MAX_THREADS:
-        raise ValueError(f"threads per word must be a multiple of {WARP} "
-                         f"in [{WARP}, {MAX_THREADS}], got {threads}")
-    smem = 4 * (2 * V + Dc * C)     # llr and marg [V], c2v [Dc, C], f32
-    if smem > SMEM_PER_CTA:
-        raise ValueError(f"a word needs {smem} bytes of shared memory, an SM "
-                         f"gives a CTA {SMEM_PER_CTA}")
-    return Geometry(threads, smem)
+    # llr and marg [V], c2v [Dc, C], f32
+    return geometry.make_geometry(threads, 4 * (2 * V + Dc * C))
 
 
 def spa_geometry(C: int, V: int, Dc: int, bf16: bool) -> Geometry:
@@ -291,13 +278,13 @@ def spa_geometry(C: int, V: int, Dc: int, bf16: bool) -> Geometry:
     words an SM) gets 256 threads in bf16 and 384 in f32; margulis (52.8
     KB, 4 words) 384; Hamming(7,4) one warp. Measured on an H100 with
     ``scripts/profile_spa_kernel.py``: on LDPC(1200,3,6) 256 threads beat
-    384 by 1.5-2.6% in bf16 and lose by 2.5% in f32; on margulis 384 beat
-    256 by 9%."""
-    words = SMEM_PER_SM // (make_geometry(C, V, Dc, WARP).smem_bytes
-                            + SMEM_RESERVED)
+    384 by 1.5-2.6% in bf16 and lose by 1.7-2.6% in f32 (15 of 16 pairs
+    over eight batches), by 5% on an irregular 1200-bit code in f32 (16 of
+    16); on margulis 384 beat 256 by 9%."""
+    words = words_per_sm(make_geometry(C, V, Dc, WARP).smem_bytes)
     warps = (WORD_WARPS if bf16 and words * WORD_WARPS >= RESIDENT_WARPS
              else WORD_WARPS_MORE)
-    return make_geometry(C, V, Dc, WARP * min(-(-C // WARP), warps))
+    return make_geometry(C, V, Dc, row_threads(C, warps))
 
 
 def spa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,

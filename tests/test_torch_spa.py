@@ -42,7 +42,7 @@ from ldpc_decoders_tpu.ops.pallas_bp import (  # noqa: E402
 from ldpc_decoders_tpu_torch import main as port_main  # noqa: E402
 from ldpc_decoders_tpu_torch.codes import get_code  # noqa: E402
 from ldpc_decoders_tpu_torch.decoders import bp  # noqa: E402
-from ldpc_decoders_tpu_torch.ops import spa_kernel  # noqa: E402
+from ldpc_decoders_tpu_torch.ops import geometry, spa_kernel  # noqa: E402
 from ldpc_decoders_tpu_torch.ops.graph import bp_tables  # noqa: E402
 from tests.ref_semantics_oracle import decode_spa_ref  # noqa: E402
 
@@ -197,7 +197,7 @@ def test_spa_geometry_fits_every_code():
         for bf16 in (True, False):
             geo = spa_kernel.spa_geometry(C, V, Dc, bf16)
             assert geo.threads % 32 == 0 and 32 <= geo.threads <= 1024, name
-            assert geo.smem_bytes <= spa_kernel.SMEM_PER_CTA, name
+            assert geo.smem_bytes <= geometry.SMEM_PER_CTA, name
             assert geo.smem_bytes >= 4 * (2 * V + Dc * C), name
             assert geo.threads < C + 32, (name, geo)
             assert geo == spa_kernel.make_geometry(C, V, Dc, geo.threads)
@@ -215,6 +215,24 @@ def test_spa_geometry_fits_every_code():
         spa_kernel.make_geometry(600, 1200, 9, 256)
     with pytest.raises(ValueError, match="shared memory"):
         spa_kernel.make_geometry(20000, 40000, 6, 256)
+
+
+def test_launch_geometry_limits():
+    """The card's limits that both kernels' rules read: a warp multiple in
+    [32, 1024], a word's shared memory within what an SM gives one CTA, the
+    words an SM holds by shared memory, and no warp without check rows."""
+    assert geometry.make_geometry(1024, geometry.SMEM_PER_CTA) == (
+        1024, geometry.SMEM_PER_CTA)
+    with pytest.raises(ValueError, match="shared memory"):
+        geometry.make_geometry(256, geometry.SMEM_PER_CTA + 1)
+    for threads in (0, 16, 48, 1056):
+        with pytest.raises(ValueError, match="threads per word"):
+            geometry.make_geometry(threads, 1024)
+    # LDPC(1200,3,6): 24,000 bytes of SPA state, 33,600 of ADMM state
+    assert [geometry.words_per_sm(b) for b in (24000, 33600, 52800)] == \
+        [9, 6, 4]
+    assert [geometry.row_threads(C, 8) for C in (3, 32, 33, 600)] == \
+        [32, 32, 64, 256]
 
 
 @pytest.mark.parametrize("name", ["1200_3_6_ldpc", "1200_rho_x5_rand_ldpc_1"])
