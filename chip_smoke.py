@@ -13,9 +13,11 @@ Phases (any failure exits non-zero and prints no result line):
    Tolerance: none — decisions and iteration counts (and the ADMM
    kernel's fractional x) must be bit-equal.
    - min-sum (``msa_decode_plain``), bf16 and f32: LDPC(1200,3,6) biAWGN
-     at 1.5 and 3.0 dB, the irregular 1200_rho_x5_rand_ldpc_1 at 2.0 dB
-     (``check_init=False``), and LDPC(1200,3,6) BSC p=0.05
-     (``check_init=True``);
+     at 1.5 and 3.0 dB, the irregular 1200_rho_x5_rand_ldpc_1 at 2.0 dB,
+     margulis at 2.25 dB and Hamming(7,4) at 3.0 dB (``check_init=False``),
+     and LDPC(1200,3,6) BSC p=0.05 (``check_init=True``); each case (and
+     each min-sum ``caps=`` case below) under the geometry the wrapper's
+     rule picks and under every entry of ``MSA_GEOMETRIES``;
    - SPA (``spa_decode_plain``), both inf policies, bf16 and f32:
      LDPC(1200,3,6) biAWGN at 1.5 and 3.0 dB, LDPC(1200,3,6) BSC p=0.05,
      1200_rho_x5_rand_ldpc_3 BSC p=0.05 with 100 iterations, margulis
@@ -27,7 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
    - erasure SPA (``bec_spa_decode_plain``): LDPC(1200,3,6) at p = 0.45,
      0.375 and 0.3 with caps 10 and 100 and in converge mode (bound
      2000), 1200_rho_x5_rand_ldpc_3 (padded slots) at p=0.4 cap 100,
-     margulis at p=0.375;
+     margulis at p=0.375, Hamming(7,4) at p=0.3; each case (and the
+     erasure ``caps=`` case) also under every entry of
+     ``BEC_GEOMETRIES``;
    - ``caps=`` snapshot planes, caps (1,2,3,6,10,40,100): each kernel
      against its plain ``caps=`` version AND each plane against the
      single-cap kernel at that cap: MSA bf16 biAWGN 2.0 dB and f32 BSC
@@ -92,11 +96,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``plain_batch`` and ``ms_at_plain_batch`` in the ``kernels`` line:
    measured, not scaled). Each kernel is also held bit-equal to its plain
    version at this shape. Both ADMM inputs are also timed under every
-   entry of ``ADMM_THREADS`` (one line each), and the two SPA bf16 2.5 dB
+   entry of ``ADMM_THREADS`` (one line each), the two SPA bf16 2.5 dB
    inputs and margulis (biAWGN 2.25 dB, bf16, reference policy, the kernel
-   alone) under every entry of ``SPA_THREADS``; the ADMM and SPA
-   ``kernels`` entries carry ``threads``, the count per word that the rule
-   picked and that ``ms`` was measured under.
+   alone) under every entry of ``SPA_THREADS``, and the min-sum and
+   erasure inputs (single-cap and ``caps=``) under every entry of
+   ``MSA_GEOMETRIES`` / ``BEC_GEOMETRIES``; the ADMM and SPA ``kernels``
+   entries carry ``threads``, the count per word that the rule picked, and
+   the min-sum and erasure entries ``geometry``, the rule's [warps per
+   word, words per CTA]: ``ms`` was measured under them.
 
 The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
 bytes it must move (input read once, K output planes and the iteration
@@ -170,6 +177,23 @@ B_MAR_PLAIN = 128
 ADMM_THREADS = (32, 128, 256, 320, 512, 704, 1024)
 # Threads per word every SPA case is also run under.
 SPA_THREADS = (32, 128, 192, 256, 320, 384, 448, 512, 640, 1024)
+# (warps per word, words per CTA) every erasure / min-sum case is also run
+# under: few and many words of one warp per CTA, one word of 2, 4 and 8
+# warps per CTA; every graph of phase 3 takes each.
+BEC_GEOMETRIES = ((1, 1), (1, 8), (1, 15), (2, 1), (4, 1), (8, 1))
+MSA_GEOMETRIES = ((1, 1), (1, 5), (2, 1), (4, 1), (8, 1))
+
+
+def launch_variants(kname: str) -> tuple:
+    """(keyword, values): the launch geometries every case of kernel
+    ``kname`` is also run under."""
+    if kname.startswith("admm"):
+        return "threads", ADMM_THREADS
+    if kname.startswith("spa"):
+        return "threads", SPA_THREADS
+    if kname.startswith("bec"):
+        return "geometry", BEC_GEOMETRIES
+    return "geometry", MSA_GEOMETRIES
 
 
 def admm_ops(word_iterations: int, bracket_rows: int, n_edge: int,
@@ -359,19 +383,19 @@ def main() -> None:
             fail(f"{kname} kernel != plain on {code_name} {channel} {param} "
                  f"({desc})")
         max_err[kname] = max(max_err[kname], err)
-        more = (ADMM_THREADS if kname.startswith("admm") else
-                SPA_THREADS if kname.startswith("spa") else ())
-        for threads in more:
-            err = max_abs_diff(cuda_fn(llr, t, threads=threads, **kw), out_p)
+        key, more = launch_variants(kname)
+        for val in more:
+            err = max_abs_diff(cuda_fn(llr, t, **{key: val}, **kw), out_p)
             if err:
                 fail(f"{kname} kernel != plain on {code_name} {channel} "
-                     f"{param} ({desc}) at {threads} threads per word: {err}")
-        if more:
-            print(f"  and at {len(more)} more thread counts: max_abs_err=0",
-                  flush=True)
+                     f"{param} ({desc}) at {key} {val}: {err}")
+        print(f"  and under {len(more)} more launch geometries: "
+              "max_abs_err=0", flush=True)
 
     msa_cases = [(FLAG, "biawgn", 1.5, False), (FLAG, "biawgn", 3.0, False),
                  ("1200_rho_x5_rand_ldpc_1", "biawgn", 2.0, False),
+                 ("margulis", "biawgn", 2.25, False),
+                 ("7_4_hamming", "biawgn", 3.0, False),
                  (FLAG, "bsc", 0.05, True)]
     for code_name, channel, param, check_init in msa_cases:
         for dt in msa_kernel.MSG_DTYPES:
@@ -389,9 +413,10 @@ def main() -> None:
         xp, ip = plain_fn(inp, t, max_iter=CAPS[-1], caps=CAPS, **kw)
         torch.cuda.synchronize()
         err = max(int((xs - xp).abs().max()), int((its - ip).abs().max()))
-        for threads in SPA_THREADS if kname.startswith("spa") else ():
+        key, more = launch_variants(kname)
+        for val in more:
             xt, it_t = cuda_fn(inp, t, max_iter=CAPS[-1], caps=CAPS,
-                               threads=threads, **kw)
+                               **{key: val}, **kw)
             err = max(err, int((xt - xp).abs().max()),
                       int((it_t - ip).abs().max()))
         for k, cap in enumerate(CAPS):
@@ -439,6 +464,7 @@ def main() -> None:
             check("bec_decode", FLAG, "bec", p_erase, dict(max_iter=max_iter))
     check("bec_decode", IREG, "bec", 0.4, dict(max_iter=100))
     check("bec_decode", "margulis", "bec", 0.375, dict(max_iter=10))
+    check("bec_decode", "7_4_hamming", "bec", 0.3, dict(max_iter=10))
 
     bf16, f32 = torch.bfloat16, torch.float32
     for channel, param, check_init, dt in (("biawgn", 2.0, False, bf16),
@@ -810,61 +836,44 @@ def main() -> None:
         running = step_no[:, None] < updates[None, :]
         return int(updates.sum()), int((per_iter * running).sum())
 
-    def rule_threads(code_name, msg_dtype=None):
-        """Threads per word of the wrapper's own launches on this graph:
-        ADMM's, or with ``msg_dtype`` SPA's."""
+    def rule_launch(kname, code_name, msg_dtype=None):
+        """The launch geometry the wrapper picks on this graph: threads per
+        word (ADMM, SPA with ``msg_dtype``), or [warps per word, words per
+        CTA] (erasure, min-sum with ``msg_dtype``)."""
         g = tab(code_name)[0].graph
-        if msg_dtype is None:
-            return admm_kernel.admm_geometry(g.n_chk, g.n_var,
-                                             g.max_chk_deg).threads
-        return spa_kernel.spa_geometry(g.n_chk, g.n_var, g.max_chk_deg,
-                                       msg_dtype == bf16).threads
+        dims = (g.n_chk, g.n_var, g.max_chk_deg)
+        if kname.startswith("admm"):
+            return admm_kernel.admm_geometry(*dims).threads
+        if kname.startswith("spa"):
+            return spa_kernel.spa_geometry(*dims, msg_dtype == bf16).threads
+        if kname.startswith("bec"):
+            geo = bec_kernel.bec_geometry(*dims, g.max_var_deg)
+        else:
+            geo = msa_kernel.msa_geometry(*dims, g.max_var_deg,
+                                          msg_dtype == bf16)
+        return [geo.threads // 32, geo.words]
 
-    def time_spa_geometries(label, code_name, llr, kw, want):
-        """One line per entry of ``SPA_THREADS``: the decode's time under
-        it (CUDA events, the better of two), its outputs held equal to
-        ``want``."""
+    def time_geometries(kname, label, code_name, llr, kw, want):
+        """One line per entry of ``launch_variants(kname)``: the decode's
+        time under it (CUDA events, the better of two), its outputs held
+        equal to ``want``."""
         _, t = tab(code_name)
-        for threads in SPA_THREADS:
+        cuda_fn = routes[kname][0]
+        key, more = launch_variants(kname)
+        for val in more:
             ms = []
             for _ in range(2):
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
-                out = spa_kernel.spa_decode_cuda(llr, t, threads=threads,
-                                                 **kw)
+                out = cuda_fn(llr, t, **{key: val}, **kw)
                 stop.record()
                 torch.cuda.synchronize()
                 ms.append(start.elapsed_time(stop))
             if max_abs_diff(out, want):
-                fail(f"spa_decode at {threads} threads per word != at the "
-                     f"rule's count ({label})")
-            print(f"timing {label} at {threads} threads per word: decode "
-                  f"{min(ms):.4f} ms at B={llr.shape[0]} | {card}",
-                  flush=True)
-
-    def time_admm_geometries(label, code_name, llr, kw, want):
-        """One line per entry of ``ADMM_THREADS``: the decode's time
-        under it (CUDA events, the better of two), its outputs held equal
-        to ``want``."""
-        _, t = tab(code_name)
-        for threads in ADMM_THREADS:
-            ms = []
-            for _ in range(2):
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = admm_kernel.admm_decode_cuda(llr, t, threads=threads,
-                                                   **kw)
-                stop.record()
-                torch.cuda.synchronize()
-                ms.append(start.elapsed_time(stop))
-            if max_abs_diff(out, want):
-                fail(f"admm_decode at {threads} threads per word != at the "
-                     f"rule's count ({label})")
-            print(f"timing {label} at {threads} threads per word: decode "
-                  f"{min(ms):.4f} ms at B={llr.shape[0]} | {card}",
-                  flush=True)
+                fail(f"{kname} at {key} {val} != at the rule's ({label})")
+            print(f"timing {label} at {key} {val}: decode {min(ms):.4f} ms "
+                  f"at B={llr.shape[0]} | {card}", flush=True)
 
     def time_case(kname, label, code_name, channel, param, kw, codeword,
                   caps=None):
@@ -984,12 +993,11 @@ def main() -> None:
                  "bound_ms": bound[bound_by],
                  "bound_by": "bytes" if bound_by == "bytes" else "operations",
                  "library_ms": None}
-        if is_admm:
-            time_admm_geometries(label, code_name, llr, kw, out_k)
-        if is_spa and "2.5 dB" in label:
-            time_spa_geometries(label, code_name, llr, kw, out_k)
-        if is_admm or is_spa:
-            entry["threads"] = rule_threads(code_name, kw.get("msg_dtype"))
+        if not is_spa or "2.5 dB" in label:
+            time_geometries(kname, label, code_name, llr, kw, out_k)
+        rule = rule_launch(kname, code_name, kw.get("msg_dtype"))
+        entry["threads" if is_admm or is_spa else "geometry"] = rule
+        print(f"launch geometry {label}: {rule} | {card}", flush=True)
         return entry
 
     msa_kw = dict(check_init=False, msg_dtype=bf16)
@@ -1038,10 +1046,10 @@ def main() -> None:
                  "batch")
         label = "spa reference bf16 margulis biawgn 2.25 dB"
         print(f"check spa_ref_decode {label}: B={B_STEP} max_abs_err=0; "
-              f"rule {rule_threads('margulis', bf16)} threads "
+              f"rule {rule_launch('spa', 'margulis', bf16)} threads "
               f"per word; mean iterations {float(want[1].float().mean()):.3f}",
               flush=True)
-        time_spa_geometries(label, "margulis", llr, kw, want)
+        time_geometries("spa_ref_decode", label, "margulis", llr, kw, want)
 
     time_spa_margulis()
     timed["admm_decode"] = time_case(
@@ -1116,14 +1124,16 @@ def main() -> None:
               f"{bound['bytes']:.4f} ms, operations "
               f"{bound['operations']:.4f} ms) | {card}", flush=True)
         label = "admm margulis bsc 0.07 converge"
-        time_admm_geometries(label, "margulis", llr, kw, out["kernel"])
-        time_admm_geometries(label, "margulis", head, kw, out["kernel_head"])
+        time_geometries("admm_decode", label, "margulis", llr, kw,
+                        out["kernel"])
+        time_geometries("admm_decode", label, "margulis", head, kw,
+                        out["kernel_head"])
         return {"ms": best["kernel"], "batch": B_MAR,
                 "plain_ms": best["plain"], "plain_batch": B_MAR_PLAIN,
                 "ms_at_plain_batch": best["kernel_head"],
                 "bound_ms": bound[bound_by], "bound_by": bound_by,
                 "library_ms": None,
-                "threads": rule_threads("margulis")}
+                "threads": rule_launch("admm", "margulis")}
 
     timed["admm_decode_margulis"] = time_margulis()
 

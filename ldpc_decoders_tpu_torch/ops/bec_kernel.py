@@ -28,6 +28,12 @@ integers, so both routes here are exact):
 With ``caps`` (ascending positive iteration caps, ``max_iter ==
 caps[-1]``) plane k of the output holds the symbols after ``caps[k]``
 iterations, or the final state where the word stopped earlier.
+
+The launch geometry (G warps per word, W words per CTA, on a persistent
+grid) is the wrapper's own choice, by ``bec_geometry`` from the graph;
+callers have no flag for it. ``bec_spa_decode_cuda(geometry=(G, W))``
+forces one, for tests and measurements; a geometry the card cannot take
+raises.
 """
 
 from __future__ import annotations
@@ -37,16 +43,20 @@ from typing import Optional, Sequence
 
 import torch
 
+from ldpc_decoders_tpu_torch.ops import geometry
 from ldpc_decoders_tpu_torch.ops._build import load_library
 from ldpc_decoders_tpu_torch.ops.caps import (
     caps_array,
     check_caps,
     fill_planes,
 )
+from ldpc_decoders_tpu_torch.ops.geometry import WARP, Geometry
 from ldpc_decoders_tpu_torch.ops.graph import BPTables
 
 ERASURE = 2
-THREADS = 256           # CUDA threads per codeword (one CTA per word)
+MAX_CHK_DEG = 8         # kMaxD of csrc/bec_decode.cu
+MAX_TABLE_INDEX = 32767  # the kernel's 16-bit index tables
+GROUP_WARPS = (1, 2, 4, 8)
 
 
 def _to_symbols(sign: torch.Tensor) -> torch.Tensor:
@@ -97,11 +107,53 @@ def bec_spa_decode_plain(y: torch.Tensor, t: BPTables, *, max_iter: int,
     return fill_planes(x_hats, _to_symbols(torch.sign(marg)), caps), iters
 
 
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def make_geometry(C: int, V: int, Dc: int, Dv: int, group_warps: int,
+                  words: int) -> Geometry:
+    """``group_warps`` warps per word and ``words`` per CTA on a [C, Dc]
+    graph with V variables of degree up to Dv, or ValueError where the
+    kernel or the card cannot take it. Shared memory per word: the c2v
+    messages, priors and marginals, one byte each; per CTA: the 16-bit
+    index tables."""
+    if Dc > MAX_CHK_DEG:
+        raise ValueError(f"check degree {Dc} > {MAX_CHK_DEG}: the kernel "
+                         "keeps a check row's slot masks in 8 bits")
+    if Dv > 126:
+        raise ValueError(f"variable degree {Dv} > 126 (int8 marginals)")
+    if V > MAX_TABLE_INDEX or Dc * C > MAX_TABLE_INDEX:
+        raise ValueError(f"a graph of {C} checks and {V} variables does not "
+                         "fit the kernel's 16-bit index tables")
+    if group_warps not in GROUP_WARPS:
+        raise ValueError(f"warps per word must be one of {GROUP_WARPS}, got "
+                         f"{group_warps}")
+    if group_warps > 1 and words > 1:
+        raise ValueError(f"{words} words per CTA of {group_warps} warps "
+                         "each: a word of more than one warp is its CTA")
+    return geometry.make_geometry(
+        WARP * group_warps, _align16(Dc * C + 2 * V), words,
+        _align16(2 * (Dc * C + Dv * V)))
+
+
+def bec_geometry(C: int, V: int, Dc: int, Dv: int) -> Geometry:
+    """The wrapper's rule, ``geometry.group_rule`` over this kernel's
+    shared memory. An H100 gets 8 warps per word on LDPC(1200,3,6) and
+    margulis, and 32 words of one warp per CTA on Hamming(7,4)."""
+    return geometry.group_rule(
+        lambda g, w: make_geometry(C, V, Dc, Dv, g, w), C, GROUP_WARPS)
+
+
 def bec_spa_decode_cuda(y: torch.Tensor, t: BPTables, *, max_iter: int,
-                        caps: Optional[Sequence[int]] = None) -> tuple:
-    """Launch ``csrc/bec_decode.cu`` on the current stream (no sync).
-    Counts single-cap launches in ``bec_spa_decode_cuda.launches`` and
-    ``caps=`` launches in ``bec_spa_decode_cuda.launches_caps``."""
+                        caps: Optional[Sequence[int]] = None,
+                        geometry: Optional[tuple] = None) -> tuple:
+    """Launch ``csrc/bec_decode.cu`` on the current stream (no sync), at
+    the geometry ``bec_geometry`` picks for this graph. ``geometry`` =
+    (warps per word, words per CTA) forces one; it is for tests and
+    measurements. Counts single-cap launches in
+    ``bec_spa_decode_cuda.launches`` and ``caps=`` launches in
+    ``bec_spa_decode_cuda.launches_caps``."""
     snaps = check_caps(caps, max_iter)
     if not y.is_cuda:
         raise ValueError("bec_spa_decode_cuda needs a CUDA tensor")
@@ -111,10 +163,8 @@ def bec_spa_decode_cuda(y: torch.Tensor, t: BPTables, *, max_iter: int,
     Dv, V = t.k_var_slot.shape
     if y.shape[1] != V:
         raise ValueError(f"y has {y.shape[1]} variables, graph has {V}")
-    if Dc > 32:
-        raise ValueError(f"check degree {Dc} > 32 (slot bitmask width)")
-    if Dv > 126:
-        raise ValueError(f"variable degree {Dv} > 126 (int8 marginals)")
+    geo = (bec_geometry(C, V, Dc, Dv) if geometry is None
+           else make_geometry(C, V, Dc, Dv, *geometry))
     for tab in (t.k_chk_var, t.k_var_slot):
         if (tab.device != y.device or tab.dtype != torch.int32
                 or not tab.is_contiguous()):
@@ -126,15 +176,20 @@ def bec_spa_decode_cuda(y: torch.Tensor, t: BPTables, *, max_iter: int,
     x_hats = torch.empty((len(snaps), B, V), dtype=torch.int32,
                          device=y.device)
     iters = torch.empty((B,), dtype=torch.int32, device=y.device)
+    next_word = torch.zeros((1,), dtype=torch.int32, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     with torch.cuda.device(y.device):
         rc = lib.bec_decode_launch(
             y.data_ptr(), t.k_chk_var.data_ptr(), t.k_var_slot.data_ptr(),
-            x_hats.data_ptr(), iters.data_ptr(), B, C, V, Dc, Dv,
-            int(max_iter), cap_arr, len(snaps), THREADS, stream)
+            x_hats.data_ptr(), iters.data_ptr(), next_word.data_ptr(), B, C,
+            V, Dc, Dv, int(max_iter), cap_arr, len(snaps),
+            geo.threads // WARP, geo.words, stream)
     if rc != 0:
-        raise RuntimeError("bec_decode kernel launch failed: "
-                           + lib.bec_decode_error_string(rc).decode())
+        raise RuntimeError(
+            f"bec_decode kernel launch failed at {geo.threads // WARP} warps "
+            f"per word and {geo.words} words per CTA "
+            f"({geo.table_bytes + geo.words * geo.smem_bytes} bytes of shared "
+            "memory): " + lib.bec_decode_error_string(rc).decode())
     if caps is None:
         bec_spa_decode_cuda.launches += 1
         return x_hats[0], iters
@@ -150,8 +205,8 @@ def _kernel_library() -> ctypes.CDLL:
     lib = load_library("bec_decode")
     if lib.bec_decode_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bec_decode_launch.argtypes = ([p, p, p, p, p] + [i] * 6
-                                          + [ctypes.POINTER(i), i, i, p])
+        lib.bec_decode_launch.argtypes = ([p] * 6 + [i] * 6
+                                          + [ctypes.POINTER(i), i, i, i, p])
         lib.bec_decode_launch.restype = i
         lib.bec_decode_error_string.argtypes = [i]
         lib.bec_decode_error_string.restype = ctypes.c_char_p

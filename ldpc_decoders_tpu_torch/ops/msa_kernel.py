@@ -26,6 +26,12 @@ caps[-1]``) both routes return ``x_hats [K, B, V]``: plane k holds the
 decisions after ``caps[k]`` iterations, or the final ones where the word
 finished earlier — bit for bit what a decode at ``max_iter=caps[k]``
 returns (the ``caps=`` snapshot planes of the Pallas kernel).
+
+The launch geometry (G warps
+per word, W words per CTA, on a persistent grid) is the wrapper's own
+choice, by ``msa_geometry`` from the graph and the message type; callers
+have no flag for it. ``msa_decode_cuda(geometry=(G, W))`` forces one, for
+tests and measurements; a geometry the card cannot take raises.
 """
 
 from __future__ import annotations
@@ -35,12 +41,14 @@ from typing import Optional, Sequence
 
 import torch
 
+from ldpc_decoders_tpu_torch.ops import geometry
 from ldpc_decoders_tpu_torch.ops._build import load_library
 from ldpc_decoders_tpu_torch.ops.caps import (
     caps_array,
     check_caps,
     fill_planes,
 )
+from ldpc_decoders_tpu_torch.ops.geometry import WARP, Geometry
 from ldpc_decoders_tpu_torch.ops.graph import (
     BPTables,
     exclusive_sign_parity,
@@ -48,8 +56,9 @@ from ldpc_decoders_tpu_torch.ops.graph import (
 )
 
 MSA_DEG1_GUARD = 1e30   # replaces the +inf a degree-1 check would emit
-THREADS = 256           # CUDA threads per codeword (one CTA per word)
 MSG_DTYPES = (torch.bfloat16, torch.float32)
+MAX_CHK_DEG = 8         # kMaxD of csrc/msa_decode.cu
+GROUP_WARPS = (1, 2, 4, 8)
 
 
 def msa_check_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -110,12 +119,50 @@ def msa_decode_plain(llr: torch.Tensor, t: BPTables, *, max_iter: int,
     return fill_planes(x_hats, x_hat.to(torch.int32), caps), iters
 
 
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def make_geometry(C: int, V: int, Dc: int, Dv: int, bf16: bool,
+                  group_warps: int, words: int) -> Geometry:
+    """``group_warps`` warps per word and ``words`` per CTA on a [C, Dc]
+    graph with V variables of degree up to Dv, or ValueError where the
+    kernel or the card cannot take it. Shared memory per word: the f32
+    marginals and the c2v messages in the message type; the index tables
+    are read through L1."""
+    if Dc > MAX_CHK_DEG:
+        raise ValueError(f"check degree {Dc} > {MAX_CHK_DEG}: the kernel "
+                         "keeps a check row's sign bits in 8 bits")
+    if group_warps not in GROUP_WARPS:
+        raise ValueError(f"warps per word must be one of {GROUP_WARPS}, got "
+                         f"{group_warps}")
+    if group_warps > 1 and words > 1:
+        raise ValueError(f"{words} words per CTA of {group_warps} warps "
+                         "each: a word of more than one warp is its CTA")
+    msg_bytes = 2 if bf16 else 4
+    return geometry.make_geometry(
+        WARP * group_warps, _align16(4 * V) + _align16(msg_bytes * Dc * C),
+        words)
+
+
+def msa_geometry(C: int, V: int, Dc: int, Dv: int, bf16: bool) -> Geometry:
+    """The wrapper's rule, ``geometry.group_rule`` over this kernel's
+    shared memory. An H100 gets 8 warps per word on LDPC(1200,3,6) and
+    margulis, and 32 words of one warp per CTA on Hamming(7,4)."""
+    return geometry.group_rule(
+        lambda g, w: make_geometry(C, V, Dc, Dv, bf16, g, w), C, GROUP_WARPS)
+
+
 def msa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
                     check_init: bool, msg_dtype: torch.dtype,
-                    caps: Optional[Sequence[int]] = None) -> tuple:
-    """Launch ``csrc/msa_decode.cu`` on the current stream (no sync).
-    Counts single-cap launches in ``msa_decode_cuda.launches`` and
-    ``caps=`` launches in ``msa_decode_cuda.launches_caps``."""
+                    caps: Optional[Sequence[int]] = None,
+                    geometry: Optional[tuple] = None) -> tuple:
+    """Launch ``csrc/msa_decode.cu`` on the current stream (no sync), at
+    the geometry ``msa_geometry`` picks for this graph and message type.
+    ``geometry`` = (warps per word, words per CTA) forces one; it is for
+    tests and measurements. Counts single-cap launches in
+    ``msa_decode_cuda.launches`` and ``caps=`` launches in
+    ``msa_decode_cuda.launches_caps``."""
     snaps = check_caps(caps, max_iter)
     if not llr.is_cuda:
         raise ValueError("msa_decode_cuda needs a CUDA tensor")
@@ -127,8 +174,9 @@ def msa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
     Dv, V = t.k_var_slot.shape
     if llr.shape[1] != V:
         raise ValueError(f"llr has {llr.shape[1]} variables, graph has {V}")
-    if Dc > 32:
-        raise ValueError(f"check degree {Dc} > 32 (sign bitmask width)")
+    bf16 = msg_dtype == torch.bfloat16
+    geo = (msa_geometry(C, V, Dc, Dv, bf16) if geometry is None
+           else make_geometry(C, V, Dc, Dv, bf16, *geometry))
     for tab in (t.k_chk_var, t.k_var_slot):
         if (tab.device != llr.device or tab.dtype != torch.int32
                 or not tab.is_contiguous()):
@@ -140,17 +188,20 @@ def msa_decode_cuda(llr: torch.Tensor, t: BPTables, *, max_iter: int,
     x_hats = torch.empty((len(snaps), B, V), dtype=torch.int32,
                          device=llr.device)
     iters = torch.empty((B,), dtype=torch.int32, device=llr.device)
+    next_word = torch.zeros((1,), dtype=torch.int32, device=llr.device)
     stream = torch.cuda.current_stream(llr.device).cuda_stream
     with torch.cuda.device(llr.device):
         rc = lib.msa_decode_launch(
             llr.data_ptr(), t.k_chk_var.data_ptr(), t.k_var_slot.data_ptr(),
-            x_hats.data_ptr(), iters.data_ptr(), B, C, V, Dc, Dv,
-            int(max_iter), int(bool(check_init)),
-            int(msg_dtype == torch.bfloat16), cap_arr, len(snaps), THREADS,
-            stream)
+            x_hats.data_ptr(), iters.data_ptr(), next_word.data_ptr(), B, C,
+            V, Dc, Dv, int(max_iter), int(bool(check_init)), int(bf16),
+            cap_arr, len(snaps), geo.threads // WARP, geo.words, stream)
     if rc != 0:
-        raise RuntimeError("msa_decode kernel launch failed: "
-                           + lib.msa_decode_error_string(rc).decode())
+        raise RuntimeError(
+            f"msa_decode kernel launch failed at {geo.threads // WARP} warps "
+            f"per word and {geo.words} words per CTA "
+            f"({geo.table_bytes + geo.words * geo.smem_bytes} bytes of shared "
+            "memory): " + lib.msa_decode_error_string(rc).decode())
     if caps is None:
         msa_decode_cuda.launches += 1
         return x_hats[0], iters
@@ -166,8 +217,8 @@ def _kernel_library() -> ctypes.CDLL:
     lib = load_library("msa_decode")
     if lib.msa_decode_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.msa_decode_launch.argtypes = ([p, p, p, p, p] + [i] * 8
-                                          + [ctypes.POINTER(i), i, i, p])
+        lib.msa_decode_launch.argtypes = ([p] * 6 + [i] * 8
+                                          + [ctypes.POINTER(i), i, i, i, p])
         lib.msa_decode_launch.restype = i
         lib.msa_decode_error_string.argtypes = [i]
         lib.msa_decode_error_string.restype = ctypes.c_char_p

@@ -22,10 +22,10 @@ For each point:
    busy share of the window's wall time;
 2. the runner end to end (one packed tally per chunk): ``words_per_sec``
    over a fixed number of words;
-3. the decode kernel alone (CUDA events) at 128, 256 and 512 threads per
-   codeword; the ADMM kernel at the launch geometry its wrapper picks for
-   the graph, which is reported (other thread counts:
-   ``scripts/sweep_admm_geometry.py``).
+3. the decode kernel alone (CUDA events, two runs of 20 decodes) at the
+   launch geometry its wrapper picks for the graph, which is reported
+   (other geometries: ``scripts/sweep_admm_geometry.py``,
+   ``scripts/profile_bp_kernel.py``).
 
 With ``--campaign`` the script instead runs that whole campaign case once
 (``campaign.run_campaign``, its own batch and ``min_wec``) after building
@@ -69,19 +69,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACTS = os.path.join(ROOT, "artifacts", "data")
 
 _MSA = dict(channel="biawgn", decoder="MSA", codeword=1, msg_dtype="bfloat16")
-# step -> (RunConfig fields, sweep points, cap labels or None, the module
-# whose THREADS the kernel launches with)
+# step -> (RunConfig fields, sweep points, cap labels or None)
 STEPS = {
-    "msa": (_MSA, (2.5, 3.0), None, msa_kernel),
+    "msa": (_MSA, (2.5, 3.0), None),
     "bec": (dict(channel="bec", decoder="SPA", codeword=0), (0.375, 0.4),
-            None, bec_kernel),
-    "caps": (_MSA, (2.0,), [0, 1, 2, 3, 6, 10, 40, 100], msa_kernel),
+            None),
+    "caps": (_MSA, (2.0,), [0, 1, 2, 3, 6, 10, 40, 100]),
     "admm": (dict(channel="biawgn", decoder="ADMM", codeword=1, max_iter=50),
-             (2.5,), None, None),
+             (2.5,), None),
     "admm_mar": (dict(channel="bsc", decoder="ADMM", codeword=1, max_iter=0,
-                      iter_cap=8000, code="margulis"), (0.07, 0.06), None,
-                 None),
+                      iter_cap=8000, code="margulis"), (0.07, 0.06), None),
 }
+
+
+def launch_geometry(step: str, g):
+    """The geometry the step's kernel wrapper picks for graph ``g`` (the
+    min-sum steps run bf16 messages)."""
+    if step.startswith("admm"):
+        return admm_kernel.admm_geometry(g.n_chk, g.n_var, g.max_chk_deg)
+    dims = (g.n_chk, g.n_var, g.max_chk_deg, g.max_var_deg)
+    if step == "bec":
+        return bec_kernel.bec_geometry(*dims)
+    return msa_kernel.msa_geometry(*dims, True)
 
 
 def ac_var(w: float, t: int) -> float:
@@ -155,7 +164,7 @@ def main() -> None:
     report = {"card": card, "step": args.step, "batch": args.batch,
               "points": {}}
     B = args.batch
-    cfg_kw, points, labels, kernel_mod = STEPS[args.step]
+    cfg_kw, points, labels = STEPS[args.step]
     cfg_kw = dict({"code": "1200_3_6_ldpc"}, **cfg_kw)
     unit = "dB" if cfg_kw["channel"] == "biawgn" else "p"
     for snr in points:
@@ -215,19 +224,12 @@ def main() -> None:
                 runner.dec.decode_multi_cap(inp, runner.caps)
         else:
             decode = lambda: runner.dec.dec.decode(inp)  # noqa: E731
-        threads = {}
-        if kernel_mod is None:
-            g = runner.code.graph
-            geo = admm_kernel.admm_geometry(g.n_chk, g.n_var, g.max_chk_deg)
-            point["geometry"] = geo._asdict()
-            print(f"{snr} {unit} ADMM launch geometry: {geo} | {card}")
-            sweep = (geo.threads, geo.threads)
-        else:
-            sweep = (128, 256, 512, 256, 128)
-        for th in sweep:
-            if kernel_mod:
-                kernel_mod.THREADS = th
-            decode()
+        geo = launch_geometry(args.step, runner.code.graph)
+        point["geometry"] = geo._asdict()
+        print(f"{snr} {unit} launch geometry: {geo} | {card}")
+        decode_ms = []
+        decode()
+        for _ in range(2):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -235,13 +237,9 @@ def main() -> None:
                 decode()
             stop.record()
             torch.cuda.synchronize()
-            threads.setdefault(th, []).append(start.elapsed_time(stop) / 20)
-        if kernel_mod:
-            kernel_mod.THREADS = 256
-        point["decode_ms_by_threads"] = threads
-        print(f"{snr} {unit} decode ms by threads/CTA: "
-              + ", ".join(f"{k}: {v}" for k, v in threads.items())
-              + f" | {card}")
+            decode_ms.append(start.elapsed_time(stop) / 20)
+        point["decode_ms"] = decode_ms
+        print(f"{snr} {unit} decode ms: {decode_ms} | {card}")
         report["points"][str(snr)] = point
 
     write_report(report, args.out)

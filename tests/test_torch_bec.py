@@ -31,7 +31,7 @@ from ldpc_decoders_tpu_torch import main as port_main  # noqa: E402
 from ldpc_decoders_tpu_torch.channels import CHANNELS, bec  # noqa: E402
 from ldpc_decoders_tpu_torch.codes import get_code  # noqa: E402
 from ldpc_decoders_tpu_torch.decoders.bec_spa import BECSPADecoder  # noqa: E402
-from ldpc_decoders_tpu_torch.ops import bec_kernel  # noqa: E402
+from ldpc_decoders_tpu_torch.ops import bec_kernel, geometry  # noqa: E402
 from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, bp_tables  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -211,3 +211,46 @@ def test_cli_cpu_bec_matches_artifact(tmp_path):
     w_r, t_r = ref["wer"]["0.375"], ref["tot"]["0.375"]
     z = (w_o - w_r) / math.sqrt(_ac_var(w_o, t_o) + _ac_var(w_r, t_r))
     assert abs(z) <= 4.0, (w_o, t_o, w_r, t_r, z)
+
+
+def test_bec_geometry_fits_every_code():
+    """The rule's geometry on every code, margulis among them, and
+    Hamming(7,4): G warps per word with G in {1, 2, 4, 8}, the CTA's
+    threads and shared memory within an H100's limits, at least one word
+    resident per SM, and the geometry ``make_geometry`` gives for its G
+    and W."""
+    names = sorted(f[:-4] for f in os.listdir(os.path.join(ROOT, "data",
+                                                           "codes")))
+    for name in names + ["7_4_hamming"]:
+        g = get_code(name).graph
+        dims = (g.n_chk, g.n_var, g.max_chk_deg, g.max_var_deg)
+        geo = bec_kernel.bec_geometry(*dims)
+        warps = geo.threads // 32
+        assert warps in bec_kernel.GROUP_WARPS, (name, geo)
+        assert geo.threads * geo.words <= geometry.MAX_THREADS, name
+        assert (geo.table_bytes + geo.words * geo.smem_bytes
+                <= geometry.SMEM_PER_CTA), (name, geo)
+        assert geo.smem_bytes >= 2 * g.n_var + g.max_chk_deg * g.n_chk, name
+        assert geometry.resident_words(geo) >= 1, (name, geo)
+        assert geo == bec_kernel.make_geometry(*dims, warps, geo.words)
+
+
+def test_bec_geometry_refusals():
+    """What the kernel or the card cannot take raises before a launch."""
+    mk = bec_kernel.make_geometry
+    with pytest.raises(ValueError, match="check degree"):
+        mk(600, 1200, 9, 3, 1, 1)
+    with pytest.raises(ValueError, match="variable degree"):
+        mk(600, 1200, 6, 127, 1, 1)
+    with pytest.raises(ValueError, match="warps per word"):
+        mk(600, 1200, 6, 3, 16, 1)
+    with pytest.raises(ValueError, match="words per CTA"):
+        mk(600, 1200, 6, 3, 1, 33)
+    with pytest.raises(ValueError, match="is its CTA"):
+        mk(600, 1200, 6, 3, 2, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        mk(4000, 8000, 6, 3, 1, 32)
+    with pytest.raises(ValueError, match="16-bit"):
+        mk(600, 40000, 6, 3, 1, 1)
+    with pytest.raises(ValueError, match="check degree"):
+        bec_kernel.bec_geometry(600, 1200, 9, 3)

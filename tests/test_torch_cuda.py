@@ -181,6 +181,14 @@ def test_spa_kernel_check_init_and_refusals(cuda):
                                    check_init=True, **kw)
 
 
+# (warps per word, words per CTA): few and many words of one warp per CTA,
+# one word of 2, 4 and 8 warps per CTA; every graph below takes each.
+BEC_GEOMETRIES = [(1, 1), (1, 8), (1, 15), (2, 1), (4, 1), (8, 1)]
+MSA_GEOMETRIES = [(1, 1), (1, 5), (2, 1), (4, 1), (8, 1)]
+BP_INPUTS = [("1200_3_6_ldpc", 0.4, 2.0), ("1200_rho_x5_rand_ldpc_3", 0.4, 2.0),
+             ("margulis", 0.375, 2.25), ("7_4_hamming", 0.3, 3.0)]
+
+
 def _erased(code, p, batch, cuda, seed):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.zeros((batch, code.get_n()), dtype=torch.int32, device=cuda)
@@ -221,10 +229,12 @@ def test_bec_kernel_random_symbols_and_refusals(cuda):
     gen = torch.Generator(device=cuda).manual_seed(9)
     y = torch.randint(0, 3, (512, 1200), generator=gen, device=cuda,
                       dtype=torch.int32)
-    xk, ik = bec_kernel.bec_spa_decode_cuda(y, t, max_iter=50)
     xp, ip = bec_kernel.bec_spa_decode_plain(y, t, max_iter=50)
-    torch.cuda.synchronize()
-    assert torch.equal(xk, xp) and torch.equal(ik, ip)
+    for geo in BEC_GEOMETRIES + [None]:               # None: the rule's
+        xk, ik = bec_kernel.bec_spa_decode_cuda(y, t, max_iter=50,
+                                                geometry=geo)
+        torch.cuda.synchronize()
+        assert torch.equal(xk, xp) and torch.equal(ik, ip), geo
     x, it = bec_kernel.bec_spa_decode_cuda(y[:0], t, max_iter=10)
     assert x.shape == (0, 1200) and it.shape == (0,)
     for bad in (y.float(), y[:, :600], y.cpu(), y.t()):
@@ -388,3 +398,71 @@ def test_admm_kernel_shapes_and_refusals(cuda):
     for threads in (0, 48, 2048):
         with pytest.raises(ValueError):
             admm_kernel.admm_decode_cuda(llr, t, threads=threads, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,p,snr", BP_INPUTS)
+@pytest.mark.parametrize("caps", [None, CAPS])
+def test_bec_kernel_every_geometry(cuda, name, p, snr, caps):
+    """The erasure kernel's outputs do not depend on the warps per word or
+    the words per CTA: under each geometry it equals the plain version bit
+    for bit, single-cap and with caps=."""
+    code = get_code(name)
+    t = bp_tables(code.graph.to(cuda))
+    y = _erased(code, p, 512, cuda, seed=16)
+    xp, ip = bec_kernel.bec_spa_decode_plain(y, t, max_iter=100, caps=caps)
+    for geo in BEC_GEOMETRIES + [None]:               # None: the rule's
+        xk, ik = bec_kernel.bec_spa_decode_cuda(y, t, max_iter=100, caps=caps,
+                                                geometry=geo)
+        torch.cuda.synchronize()
+        assert torch.equal(xk, xp) and torch.equal(ik, ip), geo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,p,snr", BP_INPUTS)
+@pytest.mark.parametrize("caps", [None, CAPS])
+@pytest.mark.parametrize("msg_dtype", ["bfloat16", "float32"])
+def test_msa_kernel_every_geometry(cuda, name, p, snr, caps, msg_dtype):
+    """The min-sum kernel's outputs do not depend on the warps per word or
+    the words per CTA: under each geometry it equals the plain version bit
+    for bit, single-cap and with caps=."""
+    code = get_code(name)
+    t = bp_tables(code.graph.to(cuda))
+    llr = _llr(code, "biawgn", snr, 512, cuda, seed=17)
+    kw = dict(max_iter=CAPS[-1] if caps else 20, check_init=False,
+              msg_dtype=getattr(torch, msg_dtype), caps=caps)
+    xp, ip = msa_kernel.msa_decode_plain(llr, t, **kw)
+    for geo in MSA_GEOMETRIES + [None]:               # None: the rule's
+        xk, ik = msa_kernel.msa_decode_cuda(llr, t, geometry=geo, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(xk, xp) and torch.equal(ik, ip), geo
+
+
+@pytest.mark.cuda
+def test_bp_kernel_geometry_refusals(cuda):
+    """A geometry the kernel or the card cannot take raises at the wrapper,
+    and the launch functions refuse it on their own."""
+    code = get_code("1200_3_6_ldpc")
+    t = bp_tables(code.graph.to(cuda))
+    y = _erased(code, 0.4, 64, cuda, seed=18)
+    llr = _llr(code, "biawgn", 2.0, 64, cuda, seed=18)
+    kw = dict(max_iter=10, check_init=False, msg_dtype=torch.bfloat16)
+    for geo in ((3, 1), (2, 16), (1, 33), (8, 8), (1, 0)):
+        with pytest.raises(ValueError):
+            bec_kernel.bec_spa_decode_cuda(y, t, max_iter=10, geometry=geo)
+        with pytest.raises(ValueError):
+            msa_kernel.msa_decode_cuda(llr, t, geometry=geo, **kw)
+    mar = bp_tables(get_code("margulis").graph.to(cuda))
+    llr_mar = _llr(get_code("margulis"), "biawgn", 2.0, 64, cuda, seed=18)
+    with pytest.raises(ValueError, match="shared memory"):
+        msa_kernel.msa_decode_cuda(llr_mar, mar, max_iter=10,
+                                   check_init=False, msg_dtype=torch.float32,
+                                   geometry=(1, 7))
+    bec_lib = bec_kernel._kernel_library()
+    msa_lib = msa_kernel._kernel_library()
+    assert bec_lib.bec_decode_occupancy(600, 1200, 6, 3, 1, 8) > 0
+    assert msa_lib.msa_decode_occupancy(600, 1200, 6, 3, 1, 1, 8) > 0
+    for g, w in ((3, 1), (2, 16), (1, 33), (8, 8)):
+        assert bec_lib.bec_decode_occupancy(600, 1200, 6, 3, g, w) < 0
+        assert msa_lib.msa_decode_occupancy(600, 1200, 6, 3, 1, g, w) < 0
+    assert msa_lib.msa_decode_occupancy(1320, 2640, 6, 3, 0, 1, 7) < 0

@@ -13,6 +13,8 @@ against the JAX package.
   different orders.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -27,7 +29,7 @@ from ldpc_decoders_tpu.decoders import bp as jax_bp  # noqa: E402
 from ldpc_decoders_tpu.ops.pallas_bp import msa_decode_pallas, slot_tables  # noqa: E402
 from ldpc_decoders_tpu_torch.codes import get_code  # noqa: E402
 from ldpc_decoders_tpu_torch.decoders import bp  # noqa: E402
-from ldpc_decoders_tpu_torch.ops import msa_kernel  # noqa: E402
+from ldpc_decoders_tpu_torch.ops import geometry, msa_kernel  # noqa: E402
 from ldpc_decoders_tpu_torch.ops.graph import bp_tables  # noqa: E402
 
 
@@ -178,3 +180,51 @@ def test_kernel_tables_layout():
     # Every real edge appears exactly once on each side.
     assert (kcv >= 0).sum() == (kvs >= 0).sum() == g.n_edge
     assert len(np.unique(kvs[kvs >= 0])) == g.n_edge
+
+
+def _bp_codes():
+    """Every code of the repository, margulis among them, and Hamming(7,4)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    names = sorted(f[:-4] for f in os.listdir(os.path.join(root, "data",
+                                                           "codes")))
+    return names + ["7_4_hamming"]
+
+
+def test_msa_geometry_fits_every_code():
+    """The rule's geometry on every code, in bf16 and f32: G warps per
+    word with G in {1, 2, 4, 8}, the CTA's threads and shared memory
+    within an H100's limits, at least one word resident per SM, and the
+    same geometry as ``make_geometry`` gives for its G and W."""
+    for name in _bp_codes():
+        g = get_code(name).graph
+        dims = (g.n_chk, g.n_var, g.max_chk_deg, g.max_var_deg)
+        for bf16 in (True, False):
+            geo = msa_kernel.msa_geometry(*dims, bf16)
+            warps = geo.threads // 32
+            assert warps in msa_kernel.GROUP_WARPS, (name, geo)
+            assert geo.threads * geo.words <= geometry.MAX_THREADS, name
+            assert (geo.table_bytes + geo.words * geo.smem_bytes
+                    <= geometry.SMEM_PER_CTA), (name, geo)
+            assert geo.smem_bytes >= (4 * g.n_var + (2 if bf16 else 4)
+                                      * g.max_chk_deg * g.n_chk), name
+            assert geometry.resident_words(geo) >= 1, (name, geo)
+            assert geo == msa_kernel.make_geometry(*dims, bf16, warps,
+                                                   geo.words)
+
+
+def test_msa_geometry_refusals():
+    """What the kernel or the card cannot take raises before a launch."""
+    mk = msa_kernel.make_geometry
+    with pytest.raises(ValueError, match="check degree"):
+        mk(600, 1200, 9, 3, True, 1, 1)
+    with pytest.raises(ValueError, match="warps per word"):
+        mk(600, 1200, 6, 3, True, 3, 1)
+    with pytest.raises(ValueError, match="words per CTA"):
+        mk(600, 1200, 6, 3, True, 8, 8)
+    with pytest.raises(ValueError, match="is its CTA"):
+        mk(600, 1200, 6, 3, True, 2, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        mk(1320, 2640, 6, 3, False, 1, 6)
+    assert mk(1320, 2640, 6, 3, False, 1, 5).words == 5
+    with pytest.raises(ValueError, match="check degree"):
+        msa_kernel.msa_geometry(600, 1200, 9, 3, True)

@@ -222,7 +222,13 @@ def test_launch_geometry_limits():
     [32, 1024], a word's shared memory within what an SM gives one CTA, the
     words an SM holds by shared memory, and no warp without check rows."""
     assert geometry.make_geometry(1024, geometry.SMEM_PER_CTA) == (
-        1024, geometry.SMEM_PER_CTA)
+        1024, geometry.SMEM_PER_CTA, 1, 0)
+    # Several words per CTA share its threads and shared memory.
+    assert geometry.make_geometry(64, 1000, 16, 2000).words == 16
+    with pytest.raises(ValueError, match="words per CTA"):
+        geometry.make_geometry(32, 1000, 33)
+    with pytest.raises(ValueError, match="shared memory"):
+        geometry.make_geometry(32, 10000, 23, 3000)
     with pytest.raises(ValueError, match="shared memory"):
         geometry.make_geometry(256, geometry.SMEM_PER_CTA + 1)
     for threads in (0, 16, 48, 1056):
