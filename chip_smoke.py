@@ -46,6 +46,18 @@ Phases (any failure exits non-zero and prints no result line):
      thread count the wrapper's rule picks and under every entry of
      ``ADMM_THREADS`` (threads per word): the outputs must not depend on
      the launch geometry.
+   - every member of both ensembles (``campaign.ENSEMBLE_MEMBERS``: ten
+     LDPC(1200,3,6) draws and ten 1200_rho_x5 irregular draws, six of
+     them with variables of degree 0), B=1024, under each wrapper's rule:
+     min-sum bf16 biAWGN 2.0 dB cap 10 and f32 BSC p=0.05, SPA under both
+     policies bf16 biAWGN 2.0 dB cap 10 and f32 BSC p=0.05, erasure SPA
+     p=0.4; the BSC and erasure cases at the ensemble's cap (10 on the
+     regular members, 100 on the irregular ones);
+   - the joint decoders (``EnsembleBPDecoder`` MSA bf16 and SPA reference
+     bf16 at 2.0 dB, SPA saturate f32 BSC p=0.05, ``EnsembleBECSPADecoder``
+     p=0.4) over the ten members of each ensemble at B=2048 per member:
+     each member's decisions and iteration counts == its own
+     ``BPDecoder`` / ``BECSPADecoder``'s.
 4. The main paths through the CLI (``main.main``, codeword as stated,
    batch 16384). Each run's kernel launch count is set to 0 just before
    it and must have risen just after; each Saver file must have the JAX
@@ -81,7 +93,22 @@ Phases (any failure exits non-zero and prints no result line):
      point of a Saver file that has a golden of the same name must be
      within |z| <= 4 of it, except LP on the BSC at p <= 0.006, where WER
      is a tie-break convention that differs by construction
-     (``decoders/lp.py``).
+     (``decoders/lp.py``);
+   - the ensemble routes, as ``campaign REG_ENS`` / ``IREG_ENS`` configure
+     their legs (``ENSEMBLE_LEGS``: REG_ENS biAWGN SPA bf16 at 2.0 dB and
+     BEC SPA at p=0.4 and 0.35, cap 10; IREG_ENS BSC SPA f32 at p=0.05 and
+     biAWGN MSA bf16 at 2.0 dB, cap 100): each leg through the rotating
+     route (``run_rotating_members``) over the ten members, the first also
+     through the joint route (``EnsembleMonteCarloRunner``); every member's
+     Saver file has its golden's name and keys and lies within |z| <= 4 of
+     it. The ensemble-mean file of the REG_ENS biAWGN SPA leg, rebuilt by
+     ``viz.ens_average.dump_average`` from the member files, must equal the
+     plain mean of the runs' results, and its WER lie within |z| <= 4 of
+     the committed mean file. ``campaign REG_ENS --emit`` and ``IREG_ENS
+     --emit`` must print 50 lines each. The two routes' throughput on the
+     REG_ENS biAWGN SPA leg (all members' words per second over 131072
+     words per member, set-up included; in the order rotating, joint,
+     joint, rotating).
 5. Timing at B=16384: the decode alone (CUDA events) and the whole step
    (sample -> LLR -> decode -> tally, host clock after a synchronize),
    through each kernel and through its plain version, in the order plain,
@@ -172,6 +199,16 @@ ADMM_KW = dict(mu=3.0, eps=1e-5)
 MAR_CAP = 8000          # the MAR goldens' bound on a run to convergence
 B_MAR = 2048
 B_MAR_PLAIN = 128
+B_MEMBER = 1024         # every ensemble member, kernel against plain
+B_JOINT = 2048          # words per member of the joint decoders and route
+# The ensemble legs of phase 4: (case, channel, decoder, codeword, points);
+# the points carry WER in the member goldens (p = 0.4 on the BEC at
+# 0.94-0.96, the others 0.01-0.9).
+ENSEMBLE_LEGS = (("REG_ENS", "biawgn", "SPA", 0, [2.0]),
+                 ("REG_ENS", "bec", "SPA", 0, [0.4, 0.35]),
+                 ("IREG_ENS", "bsc", "SPA", 0, [0.05]),
+                 ("IREG_ENS", "biawgn", "MSA", 1, [2.0]))
+ROUTE_WORDS = 131072    # words per member of each route's timed run
 # Threads per word every ADMM case is also run under, beside the count the
 # wrapper's rule picks.
 ADMM_THREADS = (32, 128, 256, 320, 512, 704, 1024)
@@ -263,7 +300,20 @@ def main() -> None:
         from ldpc_decoders_tpu_torch import main as cli
         from ldpc_decoders_tpu_torch.channels import CHANNELS
         from ldpc_decoders_tpu_torch.codes import get_code
-        from ldpc_decoders_tpu_torch.harness import CapSweepRunner, RunConfig
+        from ldpc_decoders_tpu_torch.decoders.bec_spa import BECSPADecoder
+        from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
+        from ldpc_decoders_tpu_torch.decoders.bp_ensemble import (
+            EnsembleBECSPADecoder,
+            EnsembleBPDecoder,
+        )
+        from ldpc_decoders_tpu_torch.harness import (
+            CapSweepRunner,
+            RunConfig,
+            run_rotating_members,
+        )
+        from ldpc_decoders_tpu_torch.harness.ensemble_runner import (
+            EnsembleMonteCarloRunner,
+        )
         from ldpc_decoders_tpu_torch.ops import (
             _build,
             admm_kernel,
@@ -272,6 +322,7 @@ def main() -> None:
             spa_kernel,
         )
         from ldpc_decoders_tpu_torch.ops.graph import bp_tables
+        from ldpc_decoders_tpu_torch.viz import ens_average
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
     if not os.path.isdir(ARTIFACTS):
@@ -491,6 +542,90 @@ def main() -> None:
           admm_kw("margulis", 100), batch=512, codeword=1)
     check("admm_decode_margulis", "margulis", "bsc", 0.07,
           admm_kw("margulis", MAR_CAP), batch=B_MAR_PLAIN, codeword=1)
+
+    # Every member of both ensembles: kernel == plain at the wrapper's rule
+    # (six of the IREG members hold variables of degree 0).
+    def check_members(case):
+        cap = campaign.ENSEMBLE_MAX_ITER.get(case, 10)
+        cases = [("msa_decode", "biawgn", 2.0,
+                  dict(max_iter=10, check_init=False, msg_dtype=bf16)),
+                 ("msa_decode", "bsc", 0.05,
+                  dict(max_iter=cap, check_init=True, msg_dtype=f32))]
+        for policy in spa_kernel.INF_POLICIES:
+            kname = "spa_ref_decode" if policy == "reference" else "spa_decode"
+            cases += [(kname, "biawgn", 2.0,
+                       dict(max_iter=10, check_init=False, msg_dtype=bf16,
+                            inf_policy=policy)),
+                      (kname, "bsc", 0.05,
+                       dict(max_iter=cap, check_init=True, msg_dtype=f32,
+                            inf_policy=policy))]
+        cases.append(("bec_decode", "bec", 0.4, dict(max_iter=cap)))
+        for i, member in enumerate(campaign.ENSEMBLE_MEMBERS[case]):
+            code, t = tab(member)
+            deg = code.graph.var_deg
+            wers = []
+            for kname, channel, param, kw in cases:
+                cuda_fn, plain_fn = routes[kname]
+                inp = seeded_llr(member, channel, param, B_MEMBER,
+                                 seed=100 + i)
+                out_k = cuda_fn(inp, t, **kw)
+                out_p = plain_fn(inp, t, **kw)
+                torch.cuda.synchronize()
+                if max_abs_diff(out_k, out_p):
+                    fail(f"{kname} kernel != plain on member {member} "
+                         f"{channel} {param} ({kw})")
+                wers.append(f"{float((out_k[0] != 0).any(dim=1).float().mean()):.4f}")
+            print(f"check member {member}: {int((deg == 0).sum())} variables "
+                  f"of degree 0, {int((deg == 1).sum())} of degree 1, "
+                  f"{code.graph.n_edge} edges; {len(cases)} kernels == plain "
+                  f"at B={B_MEMBER} (msa bf16 / f32, spa ref bf16 / f32, "
+                  f"spa sat bf16 / f32, erasure; cap {cap}); "
+                  f"wer {' '.join(wers)}", flush=True)
+
+    def check_joint(case):
+        """The joint decoders over the case's members on the card: each
+        member's decisions and iteration counts == its own decoder's."""
+        cap = campaign.ENSEMBLE_MAX_ITER.get(case, 10)
+        graphs = [tab(m)[0].graph for m in campaign.ENSEMBLE_MEMBERS[case]]
+        runs = (("msa bf16 biawgn 2.0 dB", "biawgn", 2.0,
+                 dict(variant="MSA", msg_dtype=bf16, check_init=False)),
+                ("spa reference bf16 biawgn 2.0 dB", "biawgn", 2.0,
+                 dict(variant="SPA", msg_dtype=bf16, check_init=False)),
+                ("spa saturate f32 bsc 0.05", "bsc", 0.05,
+                 dict(variant="SPA", msg_dtype=f32, check_init=True,
+                      inf_policy="saturate")),
+                ("erasure bec 0.4", "bec", 0.4, None))
+        for label, channel, param, kw in runs:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(11)
+            x = torch.zeros((B_JOINT, graphs[0].n_var), dtype=torch.int32,
+                            device="cuda")
+            inp = torch.stack([soft(channel,
+                                    CHANNELS[channel].send(x, param, gen),
+                                    param) for _ in graphs])
+            if kw is None:
+                ens = EnsembleBECSPADecoder(graphs, max_iter=cap,
+                                            device="cuda")
+                own = [BECSPADecoder(g, max_iter=cap, device="cuda")
+                       for g in graphs]
+            else:
+                ens = EnsembleBPDecoder(graphs, max_iter=cap, device="cuda",
+                                        **kw)
+                own = [BPDecoder(g, max_iter=cap, device="cuda", **kw)
+                       for g in graphs]
+            xs, its = ens.decode(inp)
+            for g, dec in enumerate(own):
+                if max_abs_diff((xs[g], its[g]), dec.decode(inp[g])):
+                    fail(f"joint decoder {label} on {case}: member {g + 1} "
+                         "!= its own decoder")
+            print(f"check joint {case} {label}: {len(graphs)} members x "
+                  f"B={B_JOINT}, cap {cap}: each == its own decoder; wer "
+                  f"{float((xs != 0).any(dim=2).float().mean()):.4f}",
+                  flush=True)
+
+    for case in campaign.ENSEMBLE_MEMBERS:
+        check_members(case)
+        check_joint(case)
 
     # -- 4. the main paths through the CLI ------------------------------------
     def attr_counter(fn, attr):
@@ -799,6 +934,157 @@ def main() -> None:
 
     campaign_run("HMG", {})
     campaign_run("MAR", {"max_words": 301056})
+
+    def leg_config(case, channel, decoder, codeword, params, joint, **kw):
+        """The RunConfig ``campaign.run_campaign`` gives this ensemble leg
+        (bf16 messages on biAWGN, f32 on the BSC, batch 2048 per member on
+        the joint route), at ``params``."""
+        return RunConfig(
+            channel, case, decoder, params, codeword=codeword,
+            max_iter=campaign.ENSEMBLE_MAX_ITER.get(case, 10),
+            msg_dtype="bfloat16" if channel == "biawgn" else "float32",
+            batch=B_JOINT if joint else 4096, device="cuda", log_freq=1e9,
+            **kw)
+
+    def run_route(cfg, joint):
+        members = campaign.ENSEMBLE_MEMBERS[cfg.code]
+        if joint:
+            return EnsembleMonteCarloRunner(cfg, members).run()
+        return run_rotating_members(cfg, members)
+
+    def ensemble_leg(case, channel, decoder, codeword, params, joint=False):
+        """One leg of ``case`` over its ten members through the rotating
+        (or joint) route; every member's Saver file must have the golden's
+        name and keys and lie within |z| <= 4 of it at each point. On the
+        REG_ENS biAWGN SPA leg the ensemble-mean file is rebuilt from the
+        member files and checked (``check_average``)."""
+        kname = ("bec_decode" if channel == "bec" else
+                 "msa_decode" if decoder == "MSA" else "spa_ref_decode")
+        read, reset = counters[kname]
+        members = campaign.ENSEMBLE_MEMBERS[case]
+        route = "joint" if joint else "rotating"
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = leg_config(case, channel, decoder, codeword, params, joint,
+                             data_dir=tmp)
+            reset()
+            t0 = time.time()
+            res = run_route(cfg, joint)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            n = read()
+            if n < len(members):
+                fail(f"{route} {case} {channel} {decoder}: {n} {kname} "
+                     f"launches for {len(members)} members")
+            launches[kname] += n
+            stem = f"{channel}-%s-{decoder}-{codeword}-100-{cfg.max_iter}.json"
+            if sorted(os.listdir(tmp)) != sorted(stem % m for m in members):
+                fail(f"{route} {case}: Saver files {sorted(os.listdir(tmp))}")
+            worst = 0.0
+            for m in members:
+                with open(os.path.join(tmp, stem % m)) as fp:
+                    saved = json.load(fp)
+                with open(os.path.join(ARTIFACTS, stem % m)) as fp:
+                    ref = json.load(fp)
+                if list(saved) != SAVER_KEYS or list(ref) != SAVER_KEYS:
+                    fail(f"{route} {case} {m}: Saver keys {list(saved)}")
+                for p in params:
+                    z = z_score(saved, ref, str(p))
+                    worst = max(worst, abs(z))
+                    print(f"  {route} {m} {channel} {decoder} at {p}: WER "
+                          f"{saved['wer'][str(p)]:.6f} ({saved['wec'][str(p)]}"
+                          f"/{saved['tot'][str(p)]}) vs golden "
+                          f"{ref['wer'][str(p)]:.6f} ({ref['wec'][str(p)]}/"
+                          f"{ref['tot'][str(p)]}): z={z:.3f}", flush=True)
+                    if not abs(z) <= 4.0:
+                        fail(f"{route} {case} {m} {channel} {decoder} at {p} "
+                             f"is |z|={abs(z):.2f} > 4 from its golden")
+            print(f"ensemble {route} {case} {channel} {decoder} cap "
+                  f"{cfg.max_iter} at {params}: {len(members)} members in "
+                  f"{secs:.3f} s, {kname} launches={n}, max |z| "
+                  f"{worst:.3f} | {card}", flush=True)
+            if channel == "biawgn" and decoder == "SPA" and not joint:
+                check_average(tmp, channel, decoder, res, params)
+
+    def check_average(data_dir, channel, decoder, res, params):
+        """The ensemble-mean file rebuilt by the port's ``ens_average``
+        from the member files == the plain mean of the runs' results (the
+        reference's rule: members string-sorted, each point the mean over
+        the members that hold it), and its WER within |z| <= 4 of the
+        committed mean file of the JAX package's member goldens."""
+        prefix = "1200_3_6_rand_ldpc"
+        with tempfile.TemporaryDirectory() as out:
+            path = ens_average.dump_average(data_dir, channel, prefix,
+                                            decoder, out_dir=out)
+            with open(path) as fp:
+                got = json.load(fp)
+        sources = sorted(res)
+        want = {"channel": channel, "prefix": prefix, "decoder": decoder,
+                "sources": sources,
+                "wer": {str(p): sum(res[m][p]["wer"] for m in sources)
+                        / len(sources) for p in params},
+                "ber": {str(p): sum(res[m][p]["ber"] for m in sources)
+                        / len(sources) for p in params}}
+        if os.path.basename(path) != f"{channel}-{prefix}-{decoder}.json" \
+                or got != want:
+            fail(f"ens_average {os.path.basename(path)} != the members' mean")
+        with open(os.path.join(
+                ARTIFACTS, f"{channel}-{prefix}-{decoder}.json")) as fp:
+            ref = json.load(fp)
+        for p in params:
+            key = str(p)
+            var = 0.0
+            for m in sources:
+                with open(os.path.join(
+                        ARTIFACTS, f"{channel}-{m}-{decoder}-0-100-10.json")) \
+                        as fp:
+                    gold = json.load(fp)
+                var += (ac_var(res[m][p]["wer"], res[m][p]["tot"])
+                        + ac_var(gold["wer"][key], gold["tot"][key]))
+            z = (got["wer"][key] - ref["wer"][key]) / math.sqrt(
+                var / len(sources) ** 2)
+            print(f"ens_average {channel}-{prefix}-{decoder}.json at {key}: "
+                  f"== the members' mean; WER {got['wer'][key]:.6f} vs the "
+                  f"committed mean {ref['wer'][key]:.6f}: z={z:.3f}",
+                  flush=True)
+            if not abs(z) <= 4.0:
+                fail(f"ensemble mean at {key} is |z|={abs(z):.2f} > 4 from "
+                     "the committed mean")
+
+    for case in campaign.ENSEMBLE_MEMBERS:
+        emitted = io.StringIO()
+        with contextlib.redirect_stdout(emitted):
+            campaign.main([case, "--emit"])
+        n_lines = len(emitted.getvalue().splitlines())
+        print(f"campaign {case} --emit: {n_lines} lines", flush=True)
+        if n_lines != 50:
+            fail(f"campaign {case} --emit printed {n_lines} lines, not 50")
+    for leg in ENSEMBLE_LEGS:
+        ensemble_leg(*leg)
+    ensemble_leg(*ENSEMBLE_LEGS[0], joint=True)
+
+    def route_rate(joint):
+        """Words of all members per second through one route over
+        ``ROUTE_WORDS`` words per member of the REG_ENS biAWGN SPA 2.0 dB
+        leg, host clock around the whole call (set-up included)."""
+        cfg = leg_config("REG_ENS", "biawgn", "SPA", 0, [2.0], joint,
+                         min_wec=10 ** 12, max_words=ROUTE_WORDS)
+        t0 = time.perf_counter()
+        res = run_route(cfg, joint)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        words = sum(leg[2.0]["tot"] for leg in res.values())
+        return words / secs, words
+
+    rates = {"rotating": [], "joint": []}
+    for route in ("rotating", "joint", "joint", "rotating"):
+        rate, words = route_rate(route == "joint")
+        rates[route].append(rate)
+        print(f"timing ensemble route {route} REG_ENS biawgn SPA bf16 2.0 dB: "
+              f"{words} words in {words / rate:.3f} s, {rate:.1f} cw/s | "
+              f"{card}", flush=True)
+    print(f"timing ensemble routes: rotating {max(rates['rotating']):.1f} vs "
+          f"joint {max(rates['joint']):.1f} cw/s (batch 4096 per chunk vs "
+          f"{B_JOINT} per member and chunk) | {card}", flush=True)
 
     # -- 5. timing ------------------------------------------------------------
     gen = torch.Generator(device="cuda")

@@ -1,10 +1,10 @@
 """ldpc_decoders_tpu_torch — the PyTorch / CUDA port of ``ldpc_decoders_tpu``.
 
 The package mirrors the JAX package's module layout (codes, channels,
-decoders, ops, harness, main) with PyTorch idiom inside. Plain tensor code
-is PyTorch; the fused min-sum decode loop is a hand-written CUDA C++
-kernel for Hopper (``csrc/msa_decode.cu``), built with ``nvcc`` at first
-use and bound with ``ctypes`` (``ops/_build.py``, ``ops/msa_kernel.py``).
+decoders, ops, harness, design, viz, main) with PyTorch idiom inside.
+Plain tensor code is PyTorch; the fused decode loops are hand-written CUDA
+C++ kernels for Hopper (``csrc/*.cu``), built with ``nvcc`` at first use
+and bound with ``ctypes`` (``ops/_build.py`` and a wrapper per kernel).
 
 CPU tensors take each kernel's plain PyTorch version; CUDA tensors launch
 the kernel or raise — there is no silent fallback. The package never

@@ -11,8 +11,13 @@ Case registry: HMG, MAR, REG_BAD, REG_ENS, IREG_ENS. What runs:
 - plain cases run each RunConfig through ``MonteCarloRunner``;
 - REG_BAD's iteration-cap grid runs as five ``CapSweepRunner`` passes, one
   per leg, every cap tallied from one decode;
-- the ensemble routes of REG_ENS / IREG_ENS are not ported yet (ROADMAP
-  A.11); ``--no-ensemble`` runs them member by member;
+- REG_ENS / IREG_ENS run each of their five legs over the ten member
+  codes: by default through one runner rotated from member to member
+  (``run_rotating_members``, member ``i`` seeded ``seed + i``), with
+  ``--joint-ensemble`` through ``EnsembleMonteCarloRunner`` (every member in
+  each chunk, batch 2048 per member); IREG_ENS at cap 100
+  (``ENSEMBLE_MAX_ITER``), REG_ENS at 10. ``--no-ensemble`` runs the
+  per-member RunConfigs one by one;
 - HMG (ML, LP, SPA, MSA, ADMM on Hamming(7,4)) and MAR (ADMM and the five
   BP legs on margulis) run whole; a case that holds a decoder not ported
   yet would stop with that decoder's ROADMAP item before any run starts.
@@ -38,6 +43,10 @@ from ldpc_decoders_tpu_torch.harness import (
     CapSweepRunner,
     MonteCarloRunner,
     RunConfig,
+    run_rotating_members,
+)
+from ldpc_decoders_tpu_torch.harness.ensemble_runner import (
+    EnsembleMonteCarloRunner,
 )
 from ldpc_decoders_tpu_torch.utils.registry import Registry
 
@@ -110,8 +119,9 @@ def REG_BAD() -> Iterator[RunConfig]:
         yield from def_cases("1200_3_6_ldpc", mi)
 
 
-# Ensemble campaigns: ten member codes per config. The generators below
-# are the --emit contract and the --no-ensemble path.
+# Ensemble campaigns: ten member codes per config, run by the ensemble
+# routes of run_campaign. The generators below are the --emit contract and
+# the --no-ensemble path.
 ENSEMBLE_MEMBERS = {
     "REG_ENS": [f"1200_3_6_rand_ldpc_{i + 1}" for i in range(10)],
     "IREG_ENS": [f"1200_rho_x5_rand_ldpc_{i + 1}" for i in range(10)],
@@ -155,16 +165,20 @@ def to_argv(cfg: RunConfig) -> str:
     return " ".join(parts)
 
 
-def _plan(case_names, use_ensemble: bool) -> list:
-    """The runs of the named cases as (case, kind, cfg, cap labels), or an
-    error that names what is not ported, before anything runs."""
+def _plan(case_names, use_ensemble: bool,
+          joint_ensemble: bool = False) -> list:
+    """The runs of the named cases as (case, kind, cfg, extra): extra is
+    the cap labels of a "caps" run and the member codes of a "rotating" or
+    "joint" ensemble run (whose cfg.code is the case's name, a label).
+    Raises, naming what is not ported, before anything runs."""
     plan = []
     for name in case_names:
         if use_ensemble and name in ENSEMBLE_MEMBERS:
-            raise NotImplementedError(
-                f"the ensemble routes of {name} are not ported yet (ROADMAP "
-                "A.11); --no-ensemble runs the case member by member")
-        if use_ensemble and name in CAP_SWEEP_CASES:
+            kind = "joint" if joint_ensemble else "rotating"
+            mi = ENSEMBLE_MAX_ITER.get(name, 10)
+            plan += [(name, kind, cfg, ENSEMBLE_MEMBERS[name])
+                     for cfg in def_cases(name, mi)]
+        elif use_ensemble and name in CAP_SWEEP_CASES:
             code, caps = CAP_SWEEP_CASES[name]
             plan += [(name, "caps", cfg, caps) for cfg in def_cases(code)]
         else:
@@ -179,22 +193,31 @@ def _plan(case_names, use_ensemble: bool) -> list:
 
 
 def run_campaign(case_names, data_dir=None, overrides=None,
-                 use_ensemble=True, device="cuda") -> dict:
-    """Run the named cases on ``device``; returns {(case, argv): results}.
-    biAWGN legs run bf16 messages and BSC legs float32 (module docstring);
-    cap sweeps run at batch 2048 as the JAX package has them. ``overrides``
-    (RunConfig fields) apply last."""
+                 use_ensemble=True, joint_ensemble=False,
+                 device="cuda") -> dict:
+    """Run the named cases on ``device``; returns {(case, argv): results},
+    an ensemble run's results as {member: {param: metrics}}. biAWGN legs
+    run bf16 messages and BSC legs float32 (module docstring); cap sweeps
+    and joint ensemble runs go at batch 2048 as the JAX package has them.
+    ``overrides`` (RunConfig fields) apply last."""
     results = {}
-    for name, kind, cfg, caps in _plan(case_names, use_ensemble):
+    for name, kind, cfg, extra in _plan(case_names, use_ensemble,
+                                        joint_ensemble):
         cfg = dataclasses.replace(
             cfg, device=device, data_dir=data_dir,
             msg_dtype="bfloat16" if cfg.channel == "biawgn" else "float32")
-        if kind == "caps":
+        if kind in ("caps", "joint"):
             cfg = dataclasses.replace(cfg, batch=2048)
         cfg = dataclasses.replace(cfg, **(overrides or {}))
         if kind == "caps":
             results[(name, f"caps:{to_argv(cfg)}")] = CapSweepRunner(
-                cfg, caps).run()
+                cfg, extra).run()
+        elif kind == "rotating":
+            results[(name, f"rotating:{to_argv(cfg)}")] = \
+                run_rotating_members(cfg, extra)
+        elif kind == "joint":
+            results[(name, f"ensemble:{to_argv(cfg)}")] = \
+                EnsembleMonteCarloRunner(cfg, extra).run()
         else:
             results[(name, to_argv(cfg))] = MonteCarloRunner(cfg).run()
     return results
@@ -211,6 +234,10 @@ def main(argv=None):
     p.add_argument("--no-ensemble", dest="no_ensemble", action="store_true",
                    help="run ensemble and cap-sweep cases one RunConfig at "
                         "a time (reference-style)")
+    p.add_argument("--joint-ensemble", dest="joint_ensemble",
+                   action="store_true",
+                   help="decode every ensemble member in each chunk instead "
+                        "of rotating one runner through the members")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu (the "
                         "plain PyTorch versions)")
@@ -231,6 +258,7 @@ def main(argv=None):
     return run_campaign(args.case, data_dir=args.data_dir,
                         overrides=overrides,
                         use_ensemble=not args.no_ensemble,
+                        joint_ensemble=args.joint_ensemble,
                         device=args.device)
 
 

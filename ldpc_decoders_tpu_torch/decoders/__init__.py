@@ -1,1 +1,2 @@
-"""Decoders (min-sum BP so far)."""
+"""Decoders: BP (min-sum, SPA) and its ensemble form, the erasure SPA,
+ADMM, ML, LP and the pseudo-codeword search."""

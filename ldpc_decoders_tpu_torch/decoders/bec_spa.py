@@ -33,9 +33,14 @@ class BECSPADecoder:
                 f"perm={perm!r}: the port has one route per device (kernel "
                 "on CUDA, plain PyTorch on the CPU); the JAX package's "
                 "gather/pallas routes are not ported (ROADMAP A.4)")
-        self.graph = graph if device is None else graph.to(device)
+        self.device = device
         self.max_iter = int(max_iter)
         self.iter_cap = self.max_iter if self.max_iter > 0 else int(iter_cap)
+        self.set_graph(graph)
+
+    def set_graph(self, graph: TannerGraph) -> None:
+        """Decode on ``graph`` from now on (an ensemble member swap)."""
+        self.graph = graph if self.device is None else graph.to(self.device)
         self.tables = bp_tables(self.graph)
 
     def decode(self, y: torch.Tensor) -> tuple:

@@ -70,13 +70,20 @@ class BPDecoder:
         if msg_dtype not in MSG_DTYPES:
             raise ValueError(f"msg_dtype must be bfloat16 or float32, "
                              f"not {msg_dtype}")
-        self.graph = graph if device is None else graph.to(device)
+        self.device = device
         self.variant = variant
         self.inf_policy = inf_policy if variant == "SPA" else "saturate"
         self.check_init = bool(check_init)
         self.max_iter = int(max_iter)
         self.iter_cap = self.max_iter if self.max_iter > 0 else int(iter_cap)
         self.msg_dtype = msg_dtype
+        self.set_graph(graph)
+
+    def set_graph(self, graph: TannerGraph) -> None:
+        """Decode on ``graph`` from now on (an ensemble member swap): its
+        tables go to the decoder's device; nothing is rebuilt, since the
+        kernels take their tables as arguments."""
+        self.graph = graph if self.device is None else graph.to(self.device)
         self.tables = bp_tables(self.graph)
 
     def _decode(self, llr: torch.Tensor, max_iter: int, caps) -> tuple:

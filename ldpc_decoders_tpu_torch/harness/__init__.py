@@ -5,5 +5,6 @@ from ldpc_decoders_tpu_torch.harness.cap_sweep import CapSweepRunner  # noqa: F4
 from ldpc_decoders_tpu_torch.harness.runner import (  # noqa: F401
     MonteCarloRunner,
     RunConfig,
+    run_rotating_members,
 )
 from ldpc_decoders_tpu_torch.harness.saver import Saver  # noqa: F401

@@ -16,6 +16,11 @@ consumed, so the min-wec estimator stays unbiased.
 
 Each sweep point draws from its own ``torch.Generator`` seeded from
 (seed, point index).
+
+A code ensemble runs through one runner: ``rotate_member`` swaps the
+decoder to the next member's graph and tables (the kernels take their
+tables as arguments, so nothing is rebuilt) with the member's Saver and
+seed; ``run_rotating_members`` does that over a member list.
 """
 
 from __future__ import annotations
@@ -35,6 +40,43 @@ from ldpc_decoders_tpu_torch.harness.saver import Saver
 from ldpc_decoders_tpu_torch.utils.profiler import LoopProfiler
 
 ITER_HIST_LEN = 2000    # iteration counts above it clip to the last bin
+
+
+def start_host_copy(tally: torch.Tensor) -> tuple:
+    """(host tally, CUDA event or None): a CUDA tally is copied without
+    blocking into pinned host memory, behind an event the consumer waits
+    on; a CPU tally is already on the host."""
+    if not tally.is_cuda:
+        return tally, None
+    host = torch.empty(tally.shape, dtype=tally.dtype, pin_memory=True)
+    host.copy_(tally, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def pipeline_depth(tick: int, depth: int, wec: np.ndarray,
+                   chunks: np.ndarray, min_wec: int) -> int:
+    """Chunks to keep in flight at dispatch ``tick``: a 1-2-4-... ramp up to
+    ``depth``, capped, once every run still short of ``min_wec`` has seen
+    errors, by the chunks the slowest of them still expects (``wec`` and
+    ``chunks``: each run's consumed word errors and chunks), so easy points
+    do not decode surplus chunks past the target."""
+    eff = min(depth, 1 << min(tick - 1, 10))
+    running = wec < min_wec
+    if running.any() and (wec[running] > 0).all():
+        expect = ((min_wec - wec[running]) * chunks[running]
+                  / wec[running]).max()
+        eff = min(eff, max(1, int(np.ceil(expect))))
+    return eff
+
+
+def point_generator(device, seed: int, idx: int) -> torch.Generator:
+    """The generator of sweep point ``idx`` of a run seeded ``seed``."""
+    gen = torch.Generator(device=device)
+    state = np.random.SeedSequence([seed, idx])
+    gen.manual_seed(int(state.generate_state(1, np.uint64)[0]))
+    return gen
 
 
 @dataclasses.dataclass
@@ -112,6 +154,32 @@ class MonteCarloRunner:
         return self.mod.DECODERS[cfg.decoder](self.code,
                                               **cfg.decoder_kwargs())
 
+    @property
+    def rotatable(self) -> bool:
+        """Whether the decoder can swap to another ensemble member's graph
+        (the BP and erasure decoders)."""
+        return hasattr(getattr(self.dec, "dec", None), "set_graph")
+
+    def rotate_member(self, code_name: str,
+                      seed: Optional[int] = None) -> None:
+        """Point this runner at another ensemble member: the decoder takes
+        the member's graph and tables (the kernels take their tables as
+        arguments, so nothing is rebuilt), and the run's identity, logger
+        and Saver become the member's. ``seed`` re-seeds the member's
+        sweep."""
+        if not self.rotatable:
+            raise ValueError("decoder does not support member rotation")
+        if self.cfg.codeword == -1:
+            raise ValueError("random-codeword mode samples a member-"
+                             "specific codebook; rotation requires "
+                             "codeword 0/1")
+        self.cfg = dataclasses.replace(
+            self.cfg, code=code_name,
+            **({"seed": seed} if seed is not None else {}))
+        self.code = get_code(code_name)
+        self.dec.dec.set_graph(self.code.graph)
+        self._make_savers()
+
     def _make_savers(self) -> None:
         """Run identity (the JAX package's id-key convention), logger and
         Saver."""
@@ -167,20 +235,10 @@ class MonteCarloRunner:
         """Enqueue a chunk; returns (host tally, CUDA event or None)."""
         if self.host_only:
             return self._host_chunk(param, gen), None
-        tally = self._chunk(param, gen)
-        if not tally.is_cuda:
-            return tally, None
-        host = torch.empty(tally.shape, dtype=tally.dtype, pin_memory=True)
-        host.copy_(tally, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+        return start_host_copy(self._chunk(param, gen))
 
     def _generator(self, idx: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        seed = np.random.SeedSequence([self.cfg.seed, idx])
-        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0]))
-        return gen
+        return point_generator(self.device, self.cfg.seed, idx)
 
     # ------------------------------------------------------------------
     def run_param(self, param: float, gen: torch.Generator) -> OrderedDict:
@@ -239,15 +297,10 @@ class MonteCarloRunner:
         depth = 1 if self.host_only else max(1, int(cfg.pipeline))
 
         def effective_depth(tick: int) -> int:
-            """Pipeline-fill target: a 1-2-4-... ramp, capped (once errors
-            are seen) by the expected chunks remaining to min_wec."""
             if not cfg.adaptive_pipeline:
                 return depth
-            eff = min(depth, 1 << min(tick - 1, 10))
-            if wec > 0 and consumed > 0 and wec < cfg.min_wec:
-                exp_remaining = (cfg.min_wec - wec) * consumed / wec
-                eff = min(eff, max(1, int(np.ceil(exp_remaining))))
-            return eff
+            return pipeline_depth(tick, depth, np.array([wec]),
+                                  np.array([consumed]), cfg.min_wec)
 
         prof = LoopProfiler(self.log, dump_freq=20 if cfg.profile else 0)
         chunk_i = 0
@@ -282,3 +335,17 @@ class MonteCarloRunner:
             results[param] = self.run_param(param, self._generator(idx))
         self.log.info("Done!")
         return results
+
+
+def run_rotating_members(cfg: RunConfig, member_names) -> dict:
+    """Monte-Carlo a code ensemble one member at a time through one runner
+    (:meth:`MonteCarloRunner.rotate_member`), member ``idx`` seeded
+    ``cfg.seed + idx`` so the members' channel noise is independent.
+    Per-member ``min_wec`` stop and per-member Saver files, as independent
+    per-member runs have them. Returns ``{member: {param: metrics}}``."""
+    runner = MonteCarloRunner(dataclasses.replace(cfg, code=member_names[0]))
+    results = {}
+    for idx, name in enumerate(member_names):
+        runner.rotate_member(name, seed=cfg.seed + idx)
+        results[name] = runner.run()
+    return results

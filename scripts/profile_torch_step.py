@@ -3,6 +3,7 @@
     python scripts/profile_torch_step.py [--step msa|bec|caps|admm|admm_mar]
         [--batch 16384] [--out report.json]
     python scripts/profile_torch_step.py --campaign REG_BAD [--out report.json]
+        [--max-words N] [--joint-ensemble]
 
 The step, on LDPC(1200,3,6) unless it names another code:
 
@@ -31,7 +32,12 @@ With ``--campaign`` the script instead runs that whole campaign case once
 (``campaign.run_campaign``, its own batch and ``min_wec``) after building
 the kernels, and prints its wall time and, for every Saver file that has a
 committed golden of the same name in ``artifacts/data``, the z-score
-(Agresti-Coull) of each sweep point's WER against the golden's.
+(Agresti-Coull) of each sweep point's WER against the golden's, and the
+largest |z| of each leg (the files of one channel and decoder).
+``--max-words`` bounds the words of each sweep point (the ensemble goldens
+were made with 1500000: deep points of REG_ENS's BSC min-sum leg see no
+error in that many); ``--joint-ensemble`` runs the ensemble cases through
+the joint route.
 
 Every line carries the card's name and power limit.
 """
@@ -99,9 +105,10 @@ def ac_var(w: float, t: int) -> float:
     return p * (1.0 - p) / (t + 4.0)
 
 
-def campaign_report(case: str, card: str) -> dict:
+def campaign_report(case: str, card: str, max_words=None,
+                    joint_ensemble: bool = False) -> dict:
     """Run campaign ``case`` once; wall time and z per Saver file and sweep
-    point against the golden of the same name."""
+    point against the golden of the same name, and max |z| per leg."""
     t0 = time.perf_counter()
     for src in ("msa_decode", "spa_decode", "bec_decode", "admm_decode"):
         _build.load_library(src)
@@ -109,7 +116,9 @@ def campaign_report(case: str, card: str) -> dict:
     report = {"card": card, "campaign": case, "build_s": build_s, "files": {}}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        runs = campaign.run_campaign([case], data_dir=tmp)
+        runs = campaign.run_campaign(
+            [case], data_dir=tmp, joint_ensemble=joint_ensemble,
+            overrides={"max_words": max_words} if max_words else None)
         torch.cuda.synchronize()
         report["wall_s"] = time.perf_counter() - t0
         report["runs"] = len(runs)
@@ -140,6 +149,14 @@ def campaign_report(case: str, card: str) -> dict:
             print(f"  {name}: {len(zs)} points, max |z| "
                   f"{abs(zs[worst]) if zs else float('nan'):.3f} at {worst}, "
                   f"|z| > 4 (WER vs golden) at {over}")
+    legs = {}
+    for name, zs in report["files"].items():
+        channel, decoder = name.split("-")[0], name.split("-")[2]
+        legs.setdefault(f"{channel} {decoder}", []).extend(
+            abs(z) for z in (zs or {}).values())
+    report["max_abs_z_by_leg"] = {k: max(v) for k, v in legs.items() if v}
+    print(f"campaign {case}: max |z| by leg {report['max_abs_z_by_leg']} | "
+          f"{card}")
     return report
 
 
@@ -148,6 +165,10 @@ def main() -> None:
     ap.add_argument("--campaign", choices=sorted(campaign.all_cases.keys()),
                     default=None, help="run this campaign case against the "
                                        "goldens instead of profiling a step")
+    ap.add_argument("--max-words", type=int, default=None,
+                    help="with --campaign: words per sweep point at most")
+    ap.add_argument("--joint-ensemble", action="store_true",
+                    help="with --campaign: the joint ensemble route")
     ap.add_argument("--step", choices=sorted(STEPS), default="msa")
     ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--chunks", type=int, default=40)
@@ -159,7 +180,8 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     if args.campaign:
-        write_report(campaign_report(args.campaign, card), args.out)
+        write_report(campaign_report(args.campaign, card, args.max_words,
+                                     args.joint_ensemble), args.out)
         return
     report = {"card": card, "step": args.step, "batch": args.batch,
               "points": {}}

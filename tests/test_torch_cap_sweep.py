@@ -290,10 +290,24 @@ def test_campaign_emit_equals_jax(case, capsys):
 
 
 def test_campaign_refuses_unported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        campaign.run_campaign(["REG_ENS"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        campaign.main(["IREG_ENS", "--device", "cpu"])
+    # The ensemble cases plan every member's five legs, rotating by default
+    # and joint on request; IREG_ENS at cap 100, REG_ENS at 10.
+    for joint, kind in ((False, "rotating"), (True, "joint")):
+        plan = campaign._plan(["REG_ENS", "IREG_ENS"], True, joint)
+        assert len(plan) == 2 * 5
+        for case, cap in (("REG_ENS", 10), ("IREG_ENS", 100)):
+            legs = [(cfg, extra) for name, k, cfg, extra in plan
+                    if name == case and k == kind]
+            assert [(c.channel, c.decoder) for c, _ in legs] == \
+                [(c.channel, c.decoder) for c in campaign.def_cases(case)]
+            assert all(c.max_iter == cap and c.code == case and
+                       m == campaign.ENSEMBLE_MEMBERS[case] for c, m in legs)
+            member_legs = sorted((m, c.channel, c.decoder, c.max_iter)
+                                 for c, members in legs for m in members)
+            assert len(member_legs) == 50
+            assert member_legs == sorted(
+                (c.code, c.channel, c.decoder, c.max_iter)
+                for c in campaign.all_cases.get(case)())
     # HMG (ML, LP, SPA, MSA, ADMM) and MAR (ADMM + the five BP legs) plan
     # whole; only ADMMA is left without a port.
     plan = campaign._plan(["HMG", "MAR"], True)

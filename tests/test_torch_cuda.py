@@ -466,3 +466,55 @@ def test_bp_kernel_geometry_refusals(cuda):
         assert bec_lib.bec_decode_occupancy(600, 1200, 6, 3, g, w) < 0
         assert msa_lib.msa_decode_occupancy(600, 1200, 6, 3, 1, g, w) < 0
     assert msa_lib.msa_decode_occupancy(1320, 2640, 6, 3, 0, 1, 7) < 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,policy,channel,param", [
+    ("MSA", "saturate", "biawgn", 2.0), ("SPA", "reference", "bsc", 0.05),
+    ("SPA", "saturate", "biawgn", 2.0), ("BEC", None, "bec", 0.4)])
+def test_ensemble_decoders_on_members_with_empty_columns(cuda, variant,
+                                                         policy, channel,
+                                                         param):
+    """The joint decoders over IREG members 4 and 5 (two and three
+    variables of degree 0): one kernel launch per member, each member's
+    outputs == its own plain version's."""
+    from ldpc_decoders_tpu_torch.decoders.bp_ensemble import (
+        EnsembleBECSPADecoder,
+        EnsembleBPDecoder,
+    )
+    codes = [get_code(f"1200_rho_x5_rand_ldpc_{i}") for i in (4, 5)]
+    graphs = [c.graph for c in codes]
+    if variant == "BEC":
+        inp = torch.stack([_erased(c, param, 256, cuda, seed=i)
+                           for i, c in enumerate(codes)])
+        dec = EnsembleBECSPADecoder(graphs, max_iter=100, device=cuda)
+        counter, key = bec_kernel.bec_spa_decode_cuda, None
+    else:
+        inp = torch.stack([_llr(c, channel, param, 256, cuda, seed=i)
+                           for i, c in enumerate(codes)])
+        dec = EnsembleBPDecoder(graphs, variant, max_iter=100,
+                                msg_dtype=torch.float32,
+                                check_init=channel != "biawgn",
+                                inf_policy=policy, device=cuda)
+        counter = (msa_kernel.msa_decode_cuda if variant == "MSA"
+                   else spa_kernel.spa_decode_cuda)
+        key = policy if variant == "SPA" else None
+    count = (lambda: counter.launches[key]) if key else \
+        (lambda: counter.launches)
+    before = count()
+    xs, its = dec.decode(inp)
+    assert count() == before + 2
+    for g, member in enumerate(dec.members):
+        t = member.tables
+        if variant == "BEC":
+            want = bec_kernel.bec_spa_decode_plain(inp[g], t, max_iter=100)
+        elif variant == "MSA":
+            want = msa_kernel.msa_decode_plain(
+                inp[g], t, max_iter=100, check_init=False,
+                msg_dtype=torch.float32)
+        else:
+            want = spa_kernel.spa_decode_plain(
+                inp[g], t, max_iter=100, check_init=channel != "biawgn",
+                msg_dtype=torch.float32, inf_policy=policy)
+        torch.cuda.synchronize()
+        assert torch.equal(xs[g], want[0]) and torch.equal(its[g], want[1])

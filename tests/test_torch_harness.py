@@ -249,6 +249,10 @@ def test_port_imports_no_jax():
         "import ldpc_decoders_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "need = ['codes.ensembles', 'decoders.bp_ensemble',"
+        " 'harness.ensemble_runner', 'viz.ens_average',"
+        " 'design.density_evolution']\n"
+        "assert all(p.__name__ + '.' + m in sys.modules for m in need)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('ldpc_decoders_tpu') and not"
         " m.startswith('ldpc_decoders_tpu_torch')]\n"
