@@ -6,9 +6,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device: a CUDA device must be present (there is no CPU fallback); the
    card's name and power limit as nvidia-smi reports them.
-2. Build: the four kernel sources (``ldpc_decoders_tpu_torch/csrc``:
+2. Build: the five kernel sources (``ldpc_decoders_tpu_torch/csrc``:
    ``msa_decode.cu``, ``spa_decode.cu``, ``bec_decode.cu``,
-   ``admm_decode.cu``) compile here, in parallel.
+   ``admm_decode.cu``, ``lt_peel.cu``) compile here, in parallel.
 3. Kernels against their plain PyTorch versions on the card, B=4096.
    Tolerance: none — decisions and iteration counts (and the ADMM
    kernel's fractional x) must be bit-equal.
@@ -131,6 +131,30 @@ Phases (any failure exits non-zero and prints no result line):
    entries carry ``threads``, the count per word that the rule picked, and
    the min-sum and erasure entries ``geometry``, the rule's [warps per
    word, words per CTA]: ``ms`` was measured under them.
+6. LT fountain, at the golden curves' configuration (k=10000, n=12000,
+   delta=0.5, c in 0.01, 0.03, 0.1; ``fountain/lt.py``):
+   (a) the peel kernel (``lt_peel_cuda``) against the plain sparse engine
+   (``lt_peel_plain``) on the same sampled tables: ``result`` and
+   ``resolved`` equal, ``est`` equal where resolved, at (k, n) = (40, 46)
+   (some sims must fail) and (60, 120), 24 sims each at c=0.1, and 16
+   golden-scale sims per c; (b) the dense engine (``torch.bmm`` rounds)
+   equal to the kernel on the first 4 of those per c, with its time and
+   peak memory; the host's time per sim for the light lists and for the
+   sorted tables, and the card's time to build them from the light lists;
+   (c) the CLI (``fountain.lt.main``) end to end, 128 sims per c at
+   ``--batch 64``: its Saver file has the artifact's name, and its mean
+   and std lie within 4 standard errors (the std's kurtosis-adjusted, as
+   in ``tests/test_lt.py``) of ``artifacts/data/luby-10000-12000-<c>-0.5
+   .json``; s/sim end to end, the sampler's s/sim, the device time of each
+   batch and the device's idle share; on the CLI's last batch of each c
+   the kernel (CUDA events, with its edge layout, which is also timed
+   alone: ``layout_ms``), the plain sparse engine and the dense engine,
+   the kernel held equal to both. The ``kernels``
+   entry gives c=0.03, and ``by_c`` all three: ``library_ms`` is the dense
+   engine's time (the same function through ``torch.bmm``), ``bound_ms``
+   the bytes of the real edges' two lists and the messages read once and
+   of the outputs written once over 3.35 TB/s; the rounds of the slowest
+   sim (its dependency chain) are printed beside it.
 
 The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
 bytes it must move (input read once, K output planes and the iteration
@@ -219,6 +243,16 @@ SPA_THREADS = (32, 128, 192, 256, 320, 384, 448, 512, 640, 1024)
 # warps per CTA; every graph of phase 3 takes each.
 BEC_GEOMETRIES = ((1, 1), (1, 8), (1, 15), (2, 1), (4, 1), (8, 1))
 MSA_GEOMETRIES = ((1, 1), (1, 5), (2, 1), (4, 1), (8, 1))
+# LT fountain: the golden curves' configuration (k, n, delta; each c) and
+# the phase's sizes.
+LT_K, LT_N, LT_DELTA = 10000, 12000, 0.5
+LT_CS = ("0.01", "0.03", "0.1")
+LT_SMALL = ((40, 46, 24), (60, 120, 24))   # (k, n, sims) at c = 0.1
+LT_GOLDEN_SIMS = 16
+LT_DENSE_SIMS = 4
+LT_CLI_SIMS = 128
+LT_BATCH = 64
+LT_KEYS = ("edge_sym", "edge_var", "msg")
 
 
 def launch_variants(kname: str) -> tuple:
@@ -285,6 +319,222 @@ def card_line() -> str:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
 
+def kurtosis_var_of_std(arr) -> float:
+    """Kurtosis-adjusted Var(s) of a sample's standard deviation by the
+    delta method: Var(s^2) = (mu4 - s^4 (n-3)/(n-1)) / n, Var(s) ~
+    Var(s^2) / (4 s^2). The LT symbol counts have a heavy upper tail
+    (sample kurtosis ~9-10), so the normal-theory s/sqrt(2n) is too tight."""
+    import numpy as np
+
+    n = arr.size
+    s2 = arr.var()
+    mu4 = ((arr - arr.mean()) ** 4).mean()
+    return max((mu4 - s2 ** 2 * (n - 3) / (n - 1)) / n, 0.0) / (4 * s2)
+
+
+def lt_phase(card: str) -> tuple:
+    """Phase 6, the LT fountain path at the golden curves' configuration.
+    Returns the ``kernels``-line entry of ``lt_peel`` and its launches on
+    the CLI runs."""
+    import numpy as np
+    import torch
+
+    from ldpc_decoders_tpu_torch.fountain import lt
+    from ldpc_decoders_tpu_torch.ops import lt_kernel
+
+    dev = torch.device("cuda")
+    kernel, plain = lt_kernel.lt_peel_cuda, lt_kernel.lt_peel_plain
+
+    def on_card(t):
+        return [t[key].to(dev) for key in LT_KEYS]
+
+    def differs(a, b):
+        """Results, resolved sets, and recovered bits where resolved."""
+        return not (torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+                    and torch.equal(a[1][a[2]], b[1][b[2]]))
+
+    def timed(fn, *args, reps=1):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps, out
+
+    # (a) the kernel == the plain sparse engine, and (b) the dense engine.
+    cases = [(k, n, "0.1", sims) for k, n, sims in LT_SMALL]
+    cases += [(LT_K, LT_N, c, LT_GOLDEN_SIMS) for c in LT_CS]
+    for i, (k, n, c, sims) in enumerate(cases):
+        sim = lt.LTSimulator(k, n, float(c), LT_DELTA, device=dev)
+        t0 = time.perf_counter()
+        args = on_card(sim.sample_batch(np.random.default_rng(100 + i), sims))
+        sample_s = time.perf_counter() - t0
+        ms_k, out_k = timed(kernel, *args, n)
+        ms_p, out_p = timed(plain, *args, n)
+        if differs(out_k, out_p):
+            fail(f"lt_peel kernel != plain sparse engine at k={k} n={n} c={c}")
+        res = out_k[0]
+        n_fail = int((res == n).sum())
+        print(f"check lt_peel k={k} n={n} c={c}: {sims} sims equal "
+              f"(result, resolved, est where resolved); failures {n_fail}; "
+              f"mean result {float(res.float().mean()):.1f}; kernel rounds "
+              f"max {int(out_k[3].max())}, plain rounds max "
+              f"{int(out_p[3].max())}; kernel {ms_k:.3f} ms, plain "
+              f"{ms_p:.3f} ms, sampling {sample_s / sims:.4f} s/sim | {card}",
+              flush=True)
+        if n == 46 and not n_fail:
+            fail("no sim failed at (k, n) = (40, 46): the failure path ran "
+                 "nowhere")
+        if k != LT_K:
+            continue
+        head = dict(zip(LT_KEYS, (a[:LT_DENSE_SIMS] for a in args)))
+        dense = lt.LTSimulator(k, n, float(c), LT_DELTA, engine="dense",
+                               device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms_d, out_d = timed(dense.simulate, head)
+        peak = torch.cuda.max_memory_allocated()
+        want = [x[:LT_DENSE_SIMS] for x in out_k[:3]]
+        if differs(out_d, want):
+            fail(f"dense engine != lt_peel kernel at c={c}")
+        print(f"check lt dense engine c={c}: {LT_DENSE_SIMS} sims == kernel; "
+              f"{ms_d:.3f} ms, peak memory {peak / 2**30:.3f} GiB | {card}",
+              flush=True)
+        del dense, out_d
+        torch.cuda.empty_cache()
+
+    # The edge tables: sorted on the host (sample_edges without light)
+    # against the light lists plus the layout built on the card.
+    sim = lt.LTSimulator(LT_K, LT_N, 0.03, LT_DELTA, device=dev)
+    host = {}
+    for light in (True, False):
+        rng = np.random.default_rng(7)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            lt.sample_edges(rng, sim.omega, LT_K, LT_N, sim.e_pad, light=light)
+        host[light] = (time.perf_counter() - t0) / 4
+    args = on_card(sim.sample_batch(np.random.default_rng(8), LT_BATCH))
+
+    def layout(es, ev, msg):
+        ip_s, perm, ip_v = lt_kernel.edge_layout(es, ev, LT_N, LT_K)
+        return es.gather(-1, perm)
+
+    ms_layout = min(timed(layout, *args)[0] for _ in range(3))
+    print(f"lt edge tables: host sampler {host[True]:.4f} s/sim light, "
+          f"{host[False]:.4f} s/sim with the sorted tables (+"
+          f"{host[False] - host[True]:.4f}); layout on the card "
+          f"{ms_layout:.3f} ms per batch of {LT_BATCH} | {card}", flush=True)
+
+    # (c) the CLI end to end, 128 sims per c; then the kernel, the plain
+    # sparse engine and the dense engine on its last batch.
+    real_sample, real_simulate = lt.LTSimulator.sample_batch, \
+        lt.LTSimulator.simulate
+    launches, entries = 0, {}
+    for c in LT_CS:
+        stats = {"sample_s": 0.0, "events": [], "tables": None}
+
+        def sample(self, rng, batch):
+            t0 = time.perf_counter()
+            out = real_sample(self, rng, batch)
+            stats["sample_s"] += time.perf_counter() - t0
+            stats["tables"] = out
+            return out
+
+        def simulate(self, tables):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_simulate(self, tables)
+            stop.record()
+            stats["events"].append((start, stop))
+            return out
+
+        argv = [str(LT_K), str(LT_N), c, str(LT_DELTA), str(LT_CLI_SIMS),
+                "--batch", str(LT_BATCH), "--console"]
+        artifact = f"luby-{LT_K}-{LT_N}-{c}-{LT_DELTA}.json"
+        with tempfile.TemporaryDirectory() as tmp:
+            lt.LTSimulator.sample_batch, lt.LTSimulator.simulate = sample, \
+                simulate
+            try:
+                kernel.launches = 0
+                t0 = time.perf_counter()
+                lt.main(argv + ["--data_dir", tmp])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n_launch = kernel.launches
+            finally:
+                lt.LTSimulator.sample_batch = real_sample
+                lt.LTSimulator.simulate = real_simulate
+            files = os.listdir(tmp)
+            if files != [artifact]:
+                fail(f"LT CLI c={c} wrote {files}, not [{artifact}]")
+            with open(os.path.join(tmp, artifact)) as fp:
+                saved = json.load(fp)
+        if n_launch < 1:
+            fail(f"the LT CLI at c={c} did not launch lt_peel")
+        launches += n_launch
+        ours = np.array(saved["arr"], float)
+        with open(os.path.join(ARTIFACTS, artifact)) as fp:
+            ref = np.array(json.load(fp)["arr"], float)
+        if ours.size != LT_CLI_SIMS or not ((ours >= LT_K) & (ours <= LT_N)).all():
+            fail(f"LT CLI c={c}: {ours.size} results, or some outside [k, n]")
+        se = math.sqrt(ref.var() / ref.size + ours.var() / ours.size)
+        se_s = math.sqrt(kurtosis_var_of_std(ref) + kurtosis_var_of_std(ours))
+        z_m = (ours.mean() - ref.mean()) / se
+        z_s = (ours.std() - ref.std()) / se_s
+        busy = sum(a.elapsed_time(b) for a, b in stats["events"]) / 1e3
+        batch_ms = [a.elapsed_time(b) for a, b in stats["events"]]
+        print(f"cli lt {' '.join(argv)}: {wall:.3f} s, lt_peel launches="
+              f"{n_launch}; mean {ours.mean():.1f} std {ours.std():.1f} vs "
+              f"artifact {ref.mean():.1f} / {ref.std():.1f} ({ref.size} "
+              f"sims): z mean {z_m:.3f}, z std {z_s:.3f}", flush=True)
+        print(f"timing lt cli c={c}: {wall / LT_CLI_SIMS:.4f} s/sim end to "
+              f"end, sampler {stats['sample_s'] / LT_CLI_SIMS:.4f} s/sim, "
+              f"device per batch (copy, tables, kernel) "
+              f"{', '.join(f'{x:.3f}' for x in batch_ms)} ms, device idle "
+              f"{1 - busy / wall:.4f} of the wall time | {card}", flush=True)
+        if not (abs(z_m) < 4 and abs(z_s) < 4):
+            fail(f"LT CLI c={c}: mean or std more than 4 SE from {artifact}")
+
+        # The last CLI batch: kernel, plain and dense, kernel held to both.
+        args = on_card(stats["tables"])
+        kernel(*args, LT_N)
+        ms_k, out_k = timed(kernel, *args, LT_N, reps=5)
+        ms_lay = timed(layout, *args, reps=5)[0]
+        ms_p, out_p = timed(plain, *args, LT_N)
+        dense = lt.LTSimulator(LT_K, LT_N, float(c), LT_DELTA, engine="dense",
+                               device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms_d, out_d = timed(dense.simulate, dict(zip(LT_KEYS, args)))
+        peak = torch.cuda.max_memory_allocated()
+        del dense
+        torch.cuda.empty_cache()
+        if differs(out_k, out_p) or differs(out_d, out_k[:3]):
+            fail(f"lt_peel != plain or dense on the CLI batch at c={c}")
+        # The bound: the edge lists of the real edges, the messages read
+        # once; result, est (int32) and resolved (bool) written once.
+        B = args[0].shape[0]
+        edges = int((args[0] < LT_N).sum())
+        n_bytes = 8 * edges + B * (4 * LT_K + 4 + 5 * LT_K)
+        bound = 1e3 * n_bytes / HBM_BYTES_PER_S
+        rounds = out_k[3]
+        print(f"timing lt_peel c={c} B={B}: kernel {ms_k:.4f} ms with its "
+              f"edge layout ({ms_lay:.4f} ms alone, so the kernel "
+              f"{ms_k - ms_lay:.4f}), plain {ms_p:.3f} ms, dense (torch.bmm)"
+              f" {ms_d:.3f} ms peak {peak / 2**30:.3f} GiB; bound "
+              f"{bound:.4f} ms by bytes ({edges} edges); rounds per sim max "
+              f"{int(rounds.max())} mean {float(rounds.float().mean()):.1f}, "
+              f"{1e3 * ms_k / int(rounds.max()):.2f} us per round of the "
+              f"slowest | {card}", flush=True)
+        entries[c] = {"ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
+                      "bound_by": "bytes", "library_ms": ms_d,
+                      "layout_ms": ms_lay, "batch": B,
+                      "rounds_max": int(rounds.max())}
+    return dict(entries["0.03"], c=0.03, by_c=entries), launches
+
 
 def main() -> None:
     try:
@@ -339,7 +589,8 @@ def main() -> None:
 
     # -- 2. build all kernels at once ----------------------------------------
     t0 = time.time()
-    sources = ("msa_decode", "spa_decode", "bec_decode", "admm_decode")
+    sources = ("msa_decode", "spa_decode", "bec_decode", "admm_decode",
+               "lt_peel")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(_build.load_library, s) for s in sources]:
             try:
@@ -1423,6 +1674,11 @@ def main() -> None:
 
     timed["admm_decode_margulis"] = time_margulis()
 
+    # -- 6. LT fountain ------------------------------------------------------
+    timed["lt_peel"], launches["lt_peel"] = lt_phase(card)
+    knames.append("lt_peel")
+    max_err["lt_peel"] = 0      # phase 6 fails on any difference
+
     csrc = "ldpc_decoders_tpu_torch/csrc/"
     pallas = "ldpc_decoders_tpu/ops/pallas_bp.py:"
     sources = {"msa_decode": ("msa_decode.cu", "339"),
@@ -1435,9 +1691,13 @@ def main() -> None:
     for k in knames:
         if launches[k] < 1:
             fail(f"no main path launched {k}")
-        src, line = sources[k.removesuffix("_caps")]
+        if k == "lt_peel":      # no Pallas kernel: the JAX sparse engine
+            src, replaces = "lt_peel.cu", "ldpc_decoders_tpu/fountain/lt.py:290"
+        else:
+            src, line = sources[k.removesuffix("_caps")]
+            replaces = pallas + line
         lines.append({"name": k, "route": "cuda", "source": csrc + src,
-                      "replaces": pallas + line, "launches": launches[k],
+                      "replaces": replaces, "launches": launches[k],
                       "max_abs_err": max_err[k], **timed[k]})
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

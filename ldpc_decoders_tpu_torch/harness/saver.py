@@ -31,6 +31,13 @@ class Saver:
             data.setdefault(key, {})[str(param)] = val_dict[key]
         self._write(data)
 
+    def add_all(self, val_dict) -> None:
+        """Rewrite the file as the run ids plus ``val_dict`` (the LT CLI's
+        whole ``arr`` after every batch)."""
+        data = OrderedDict(self.dict)
+        data.update(val_dict)
+        self._write(data)
+
     def _write(self, data) -> None:
         tmp_path = self.file_path + ".tmp"
         with open(tmp_path, "w") as fp:

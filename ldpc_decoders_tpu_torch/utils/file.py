@@ -15,6 +15,12 @@ def resolve_data_dir_os(project: str) -> str:
     return os.path.join(root, project)
 
 
+def get_data_file_list(data_dir: str) -> tuple:
+    """The JSON result files in a directory (not its subdirectories)."""
+    return tuple(f for f in next(os.walk(data_dir), ((), (), ()))[2]
+                 if os.path.splitext(f)[1] == ".json")
+
+
 def load_json(file_path: str):
     """Tolerant JSON load, None on any failure."""
     try:

@@ -1,1 +1,1 @@
-"""Analysis of simulation results: ensemble averages."""
+"""Analysis of simulation results: ensemble averages and LT plots."""

@@ -1,7 +1,8 @@
 """PyTorch port on the card: the CUDA min-sum, SPA, erasure and ADMM
 kernels against their plain PyTorch versions, bit for bit (decisions and
 iteration counts; ADMM's fractional x too), single-cap and with ``caps=``
-snapshot planes.
+snapshot planes; the LT peel kernel against the plain sparse engine and
+the dense engine (results, resolved sets, recovered bits).
 Marked ``cuda`` and skipped without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -518,3 +519,90 @@ def test_ensemble_decoders_on_members_with_empty_columns(cuda, variant,
                 msg_dtype=torch.float32, inf_policy=policy)
         torch.cuda.synchronize()
         assert torch.equal(xs[g], want[0]) and torch.equal(its[g], want[1])
+
+
+# -- LT peeling: csrc/lt_peel.cu against the plain sparse engine ------------
+
+LT_CASES = [(0, 60, 120, 0.1, 24), (2, 40, 46, 0.1, 24),
+            (3, 200, 260, 0.03, 16), (5, 10000, 12000, 0.03, 4)]
+
+
+def _lt_tables(k, n, c, seed, batch, device):
+    from ldpc_decoders_tpu_torch.fountain.lt import LTSimulator
+
+    sim = LTSimulator(k, n, c, 0.5, device=device)
+    return sim, sim.sample_batch(np.random.default_rng(seed), batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,k,n,c,batch", LT_CASES)
+def test_lt_kernel_bit_equal_plain(cuda, seed, k, n, c, batch):
+    from ldpc_decoders_tpu_torch.ops import lt_kernel
+
+    _, t = _lt_tables(k, n, c, seed, batch, cuda)
+    args = [t[key].to(cuda) for key in ("edge_sym", "edge_var", "msg")]
+    before = lt_kernel.lt_peel_cuda.launches
+    rk, ek, vk, _ = lt_kernel.lt_peel(*args, n)
+    assert lt_kernel.lt_peel_cuda.launches == before + 1
+    rp, ep, vp, _ = lt_kernel.lt_peel_plain(*args, n)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp) and torch.equal(vk, vp)
+    assert torch.equal(ek[vk], ep[vp])
+    if n == 46:
+        assert bool((rk == n).any())
+
+
+@pytest.mark.cuda
+def test_lt_simulator_on_card_launches_kernel_and_dense_agrees(cuda):
+    from ldpc_decoders_tpu_torch.fountain.lt import LTSimulator
+    from ldpc_decoders_tpu_torch.ops import lt_kernel
+
+    sim, t = _lt_tables(200, 260, 0.1, 7, 16, cuda)
+    assert sim.engine == "sparse" and t["msg"].is_pinned()
+    before = lt_kernel.lt_peel_cuda.launches
+    rk, ek, vk = sim.simulate(t)
+    assert lt_kernel.lt_peel_cuda.launches == before + 1
+    dense = LTSimulator(200, 260, 0.1, 0.5, engine="dense", device=cuda)
+    rd, ed, vd = dense.simulate(t)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.equal(rk, rd) and torch.equal(vk, vd)
+    assert torch.equal(ek[vk], ed[vd])
+    assert torch.equal(ek[vk].cpu(), t["msg"][vk.cpu()])
+
+
+@pytest.mark.cuda
+def test_lt_kernel_has_no_fallback(cuda, monkeypatch):
+    from ldpc_decoders_tpu_torch.ops import lt_kernel
+
+    _, t = _lt_tables(60, 120, 0.1, 1, 4, cuda)
+    args = [t[key].to(cuda) for key in ("edge_sym", "edge_var", "msg")]
+
+    def no_library(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(lt_kernel, "load_library", no_library)
+    with pytest.raises(RuntimeError, match="cannot build"):
+        lt_kernel.lt_peel(*args, 120)
+
+
+@pytest.mark.cuda
+def test_lt_kernel_refusals(cuda):
+    from ldpc_decoders_tpu_torch.fountain.lt import LTSimulator
+    from ldpc_decoders_tpu_torch.ops import lt_kernel
+
+    z = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-bit"):
+        lt_kernel.lt_peel_cuda(z, z, z, 70000)
+    with pytest.raises(ValueError, match="shared memory"):
+        lt_kernel.lt_peel_cuda(z, z, torch.zeros((1, 2_000_000),
+                                                 dtype=torch.int32,
+                                                 device=cuda), 20000)
+    r, e, v, _ = lt_kernel.lt_peel_cuda(z[:0], z[:0], z[:0], 8)
+    assert r.shape == (0,) and e.shape == (0, 8)
+    # 200 sims' G would take 96 GB: refused before anything is built.
+    big = LTSimulator(10000, 12000, 0.03, 0.5, engine="dense", device=cuda)
+    pads = {"edge_sym": torch.full((200, 8), 12000, dtype=torch.int32),
+            "edge_var": torch.full((200, 8), 10000, dtype=torch.int32),
+            "msg": torch.zeros((200, 10000), dtype=torch.int32)}
+    with pytest.raises(MemoryError):
+        big.simulate(pads)
