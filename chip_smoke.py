@@ -156,6 +156,34 @@ Phases (any failure exits non-zero and prints no result line):
    of the outputs written once over 3.35 TB/s; the rounds of the slowest
    sim (its dependency chain) are printed beside it.
 
+7. ADMMA and the plots (``decoders/admma.py``; ADMMA has no kernel of its
+   own: its train mode runs the plain ADMM loop on the card with the exact
+   projection as its z-update, and one Adam step per loop iteration):
+   (a) at the CLI's width (layers [100, 100]) on LDPC(1200,3,6), biAWGN
+   2.5 dB, codeword 1, cap 50, B=4096: train mode equal to the ADMM kernel
+   ``csrc/admm_decode.cu`` bit for bit in x_hat, iterations and fractional
+   x, its parameters moved; its decode time and peak memory, and per loop
+   iteration the MLP forward, the exact projection and the Adam step
+   (CUDA events on the first iteration's rows); TF32 must be off;
+   (b) offline training: dim 4 [64, 64], 1500 steps of 512, MSE < 5e-3
+   against the exact projection on 256 held-out rows; dim 6 [100, 100],
+   2000 steps of 1024, its loss; steps/s of both;
+   (c) eval mode with the dim-4 model on the Hamming(7,4) codebook (BSC
+   0.05): at least 75% of words, and all of them with ``apprx=3`` and
+   ``iter_cap=500``; the eval-mode rate on (a)'s input with the committed
+   ``cache/model_6-100-100-6.npz``;
+   (d) the CLI: ``main biawgn 1200_3_6_ldpc ADMMA --train`` and ``... ADMM``
+   at the same seed, points (2.75 and 3.0 dB) and ``--max-iter 50``: the
+   runner gives both the same pipeline rule and generator draws, so their
+   Saver files' tot, wec, wer, bec, ber and iteration histograms must be
+   equal; the ADMMA run launches no kernel, the ADMM run ``admm_decode``
+   (counted in its ``kernels`` entry);
+   (e) the polytope demos' projections on the card equal the CPU's within
+   1e-6, and ``viz.cases HMG`` draws its six figures from
+   ``artifacts/data``; where matplotlib is not installed, each figure's
+   curves (files, labels, points) go through the same selection and plot
+   functions into a recorder and are checked, and nothing is drawn.
+
 The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
 bytes it must move (input read once, K output planes and the iteration
 counts written once) over 3.35 TB/s, and its operations over 67 TFLOP/s
@@ -253,6 +281,9 @@ LT_DENSE_SIMS = 4
 LT_CLI_SIMS = 128
 LT_BATCH = 64
 LT_KEYS = ("edge_sym", "edge_var", "msg")
+# ADMMA (phase 7): the CLI's MLP width and the cap of its run.
+ADMMA_LAYERS = [100, 100]
+ADMMA_CAP = 50
 
 
 def launch_variants(kname: str) -> tuple:
@@ -534,6 +565,301 @@ def lt_phase(card: str) -> tuple:
                       "layout_ms": ms_lay, "batch": B,
                       "rounds_max": int(rounds.max())}
     return dict(entries["0.03"], c=0.03, by_c=entries), launches
+
+
+def admma_phase(card: str) -> int:
+    """Phase 7, ADMMA and the plots. Returns the ``admm_decode`` launches
+    of the ADMM CLI run in (d)."""
+    import numpy as np
+    import torch
+
+    from ldpc_decoders_tpu_torch import main as cli
+    from ldpc_decoders_tpu_torch.channels import CHANNELS
+    from ldpc_decoders_tpu_torch.codes import get_code
+    from ldpc_decoders_tpu_torch.decoders import admma
+    from ldpc_decoders_tpu_torch.decoders.admm import ADMMDecoder
+    from ldpc_decoders_tpu_torch.ops import admm_kernel
+    from ldpc_decoders_tpu_torch.ops.projection import (
+        project_parity_polytope,
+    )
+    from ldpc_decoders_tpu_torch.utils.math import pseudo_to_cw_tensor
+
+    dev = torch.device("cuda")
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("TF32 is enabled for float32 matmuls: ADMMA's MLP must run in "
+             "true float32")
+
+    def events(fn, reps=1):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps, out
+
+    code = get_code(FLAG)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    x = torch.ones((B_CHECK, code.get_n()), dtype=torch.int32, device=dev)
+    llr = CHANNELS["biawgn"].llr(CHANNELS["biawgn"].send(x, 2.5, gen), 2.5)
+    kw = dict(mu=3.0, eps=1e-5, max_iter=ADMMA_CAP)
+
+    with tempfile.TemporaryDirectory() as cache:
+        # (a) train mode == the ADMM kernel, bit for bit.
+        ref = ADMMDecoder(code.graph, device=dev, **kw)
+        want = admm_kernel.admm_decode_cuda(llr, ref.tables,
+                                            n_edge=code.graph.n_edge, **kw)
+        got, rows = {}, []
+        for pseudo in (False, True):
+            dec = admma.ADMMADecoder(code.graph, layers=ADMMA_LAYERS,
+                                     train=True, allow_pseudo=pseudo,
+                                     cache_dir=cache, device=dev, **kw)
+            w0 = dec.mlp.w1.detach().clone()
+            z_update = dec._z_update
+
+            def keep_rows(it, v, _z=z_update):
+                if it == 0:
+                    rows.append(v)
+                return _z(it, v)
+
+            dec._z_update = keep_rows
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got[pseudo] = dec.decode(llr)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            if torch.equal(w0, dec.mlp.w1):
+                fail("ADMMA train mode did not move its parameters")
+        x_hat, iters = got[False]
+        frac = pseudo_to_cw_tensor(want[2], True)
+        if not (torch.equal(x_hat, want[0]) and torch.equal(iters, want[1])
+                and torch.equal(got[True][0], frac)
+                and torch.equal(got[True][1], want[1])):
+            fail("ADMMA train mode != the admm_decode kernel at "
+                 f"{ADMMA_LAYERS}, B={B_CHECK}")
+        n_loop = int(iters.max()) + (int(iters.max()) < ADMMA_CAP)
+        rows_b = B_CHECK * code.graph.n_chk
+        act_gb = rows_b * max(ADMMA_LAYERS) * 4 / 1e9
+        print(f"check admma train == admm_decode kernel, {FLAG} biawgn 2.5 dB "
+              f"cap {ADMMA_CAP} layers {ADMMA_LAYERS}: B={B_CHECK} x_hat, "
+              f"iters and fractional x bit-equal; mean iterations "
+              f"{float(iters.float().mean()):.3f}, loop iterations (Adam "
+              f"steps) {n_loop}; wer "
+              f"{float((x_hat != 1).any(dim=1).float().mean()):.5f}; decode "
+              f"{secs:.3f} s = {B_CHECK / secs:.1f} cw/s; peak memory "
+              f"{peak / 2**30:.3f} GiB ({rows_b} rows; one hidden "
+              f"activation {act_gb:.3f} GB) | {card}", flush=True)
+
+        # ms per loop iteration: the MLP forward, the exact projection and
+        # the Adam step (forward, backward, update), on the first
+        # iteration's rows; the rest of the iteration is the plain loop.
+        v = rows[0]
+        flat = v.reshape(-1, v.shape[-1])
+        mlp = admma.mlp_init(v.shape[-1], ADMMA_LAYERS, device=dev)
+        opt = admma.make_adam(mlp, 1e-3)
+        target = project_parity_polytope(v).reshape(flat.shape)
+
+        def forward():
+            with torch.no_grad():
+                return mlp(flat)
+
+        split = {}
+        for name, fn in (("mlp_forward", forward),
+                         ("exact_projection",
+                          lambda: project_parity_polytope(v)),
+                         ("adam_step",
+                          lambda: admma.adam_step(mlp, opt, flat, target))):
+            fn()
+            split[name] = min(events(fn)[0] for _ in range(3))
+        per_it = 1e3 * secs / n_loop
+        print(f"admma ms per loop iteration at B={B_CHECK} (train): "
+              + ", ".join(f"{k} {t:.3f}" for k, t in split.items())
+              + f", the whole iteration {per_it:.3f} (other "
+              f"{per_it - split['exact_projection'] - split['adam_step']:.3f})"
+              f" | {card}", flush=True)
+
+        # (b) offline training on the card.
+        t0 = time.perf_counter()
+        mlp4, loss4 = admma.train_offline(4, [64, 64], steps=1500, batch=512,
+                                          cache_dir=cache, log_every=0,
+                                          device=dev)
+        secs4 = time.perf_counter() - t0
+        xs = torch.as_tensor(np.random.default_rng(0).random(
+            (256, 4), dtype=np.float32), device=dev)
+        with torch.no_grad():
+            mse = float(((mlp4(xs) - project_parity_polytope(xs)) ** 2).mean())
+        print(f"admma offline dim 4 [64, 64], 1500 steps of 512: last loss "
+              f"{loss4:.6f}, held-out MSE {mse:.6f} (bar 5e-3), "
+              f"{1500 / secs4:.1f} steps/s | {card}", flush=True)
+        if not mse < 5e-3:
+            fail(f"offline training at dim 4 reached MSE {mse} >= 5e-3")
+        steps6 = 2000
+        t0 = time.perf_counter()
+        _, loss6 = admma.train_offline(6, ADMMA_LAYERS, steps=steps6,
+                                       batch=1024, cache_dir=cache,
+                                       log_every=0, device=dev)
+        secs6 = time.perf_counter() - t0
+        print(f"admma offline dim 6 {ADMMA_LAYERS}, {steps6} steps of 1024: "
+              f"last loss {loss6:.6f}, {steps6 / secs6:.1f} steps/s | {card}",
+              flush=True)
+
+        # (c) eval and apprx decodes of the Hamming(7,4) codebook with the
+        # dim-4 model, as the CPU tests hold them.
+        ham = get_code("7_4_hamming")
+        cb = torch.as_tensor(ham.cb, dtype=torch.int32, device=dev)
+        g_ham = CHANNELS["bsc"].llr(cb, 0.05)
+        for apprx, extra in ((-1, dict(max_iter=100)),
+                             (3, dict(max_iter=-1, iter_cap=500))):
+            dec = admma.ADMMADecoder(ham.graph, layers=[64, 64], apprx=apprx,
+                                     cache_dir=cache, device=dev, **extra)
+            ok = float((dec.decode(g_ham)[0] == cb).all(dim=1).float().mean())
+            print(f"admma eval hamming codebook apprx={apprx}: "
+                  f"{ok:.4f} of words decoded", flush=True)
+            if (apprx < 0 and ok < 0.75) or (apprx > 0 and ok < 1.0):
+                fail(f"ADMMA eval mode (apprx={apprx}) decoded {ok} of the "
+                     "Hamming(7,4) codebook")
+
+        # ADMMA eval-mode rate on the flagship with the committed dim-6
+        # model (the MLP serves every iteration).
+        dec = admma.ADMMADecoder(code.graph, layers=ADMMA_LAYERS,
+                                 cache_dir=os.path.join(ROOT, "cache"),
+                                 device=dev, **kw)
+        dec.decode(llr[:64])
+        secs_e, (xe, ie) = events(lambda: dec.decode(llr))
+        secs_e /= 1e3
+        print(f"admma eval {FLAG} biawgn 2.5 dB cap {ADMMA_CAP}, committed "
+              f"model: decode {secs_e:.3f} s = {B_CHECK / secs_e:.1f} cw/s, "
+              f"mean iterations {float(ie.float().mean()):.3f}, wer "
+              f"{float((xe != 1).any(dim=1).float().mean()):.5f} | {card}",
+              flush=True)
+
+    # (d) the CLI end to end: ADMMA --train and ADMM at the same seed,
+    # points and cap. Both run the runner's one pipeline rule and the same
+    # generator draws, and train mode decodes as the kernel does, so every
+    # tally of the Saver files must agree.
+    saved, n_admm = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for dec_name in ("ADMMA", "ADMM"):
+            argv = ["biawgn", FLAG, dec_name, "--codeword", "1", "--max-iter",
+                    str(ADMMA_CAP), "--min-wec", "200", "--params", "2.75",
+                    "3.0", "--seed", "5", "--console", "--data_dir", tmp,
+                    "--cache_dir", os.path.join(tmp, "cache")]
+            if dec_name == "ADMMA":
+                argv.append("--train")
+            admm_kernel.admm_decode_cuda.launches = 0
+            t0 = time.perf_counter()
+            res = cli.main(argv)
+            secs = time.perf_counter() - t0
+            n = admm_kernel.admm_decode_cuda.launches
+            if dec_name == "ADMM":
+                n_admm = n
+            elif n:
+                fail("the ADMMA CLI run launched the ADMM kernel")
+            name = (f"biawgn-{FLAG}-{dec_name}-1-200-3.0-1e-05-{ADMMA_CAP}-"
+                    "False" + ("-[100, 100]" if dec_name == "ADMMA" else "")
+                    + ".json")
+            with open(os.path.join(tmp, name)) as fp:
+                saved[dec_name] = json.load(fp)
+            print(f"cli {' '.join(argv[:3])} --max-iter {ADMMA_CAP}"
+                  f"{' --train' if dec_name == 'ADMMA' else ''}: {secs:.3f} s, "
+                  f"admm_decode launches={n}, " + "; ".join(
+                      f"{p}: wec {r['wec']} / tot {r['tot']}, bec {r['bec']}, "
+                      f"{r['words_per_sec']:.1f} cw/s" for p, r in res.items())
+                  + f" | {card}", flush=True)
+    for key in ("tot", "wec", "wer", "bec", "ber", "dec"):
+        if saved["ADMMA"][key] != saved["ADMM"][key]:
+            fail(f"ADMMA --train and ADMM CLI Saver files differ in {key}")
+    if n_admm < 1:
+        fail("the ADMM CLI run did not launch admm_decode")
+    print("cli ADMMA --train == ADMM: tot, wec, wer, bec, ber and the "
+          "iteration histograms equal at both points", flush=True)
+    plot_checks()
+    return n_admm
+
+
+def plot_checks() -> None:
+    """Phase 7 (e), the plots: ``viz.cases HMG`` from the artifacts, and the
+    polytope demos with their projections on the card. Where matplotlib is
+    not installed, every HMG figure's curves go through the same selection,
+    labels and plot functions into a recorder, and nothing is drawn."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from ldpc_decoders_tpu_torch.ops.projection import (
+        project_parity_polytope,
+    )
+    from ldpc_decoders_tpu_torch.viz import cases as viz_cases
+    from ldpc_decoders_tpu_torch.viz import graph as viz_graph
+    from ldpc_decoders_tpu_torch.viz import polytope
+
+    for dim in (2, 3):
+        v, z = polytope.demo_points(dim, 500, seed=dim, device="cuda")
+        want = project_parity_polytope(torch.as_tensor(v)).numpy()
+        err = float(np.abs(z - want).max())
+        print(f"polytope demo d={dim}: 500 projections on the card vs the "
+              f"CPU, max |diff| {err}", flush=True)
+        if not err <= 1e-6:
+            fail(f"polytope projections on the card differ from the CPU's by "
+                 f"{err}")
+    hmg = sorted(f"HMG__{c}{s}.png" for c in ("BEC", "BSC", "BIAWGN")
+                 for s in ("", "_WER"))
+    with tempfile.TemporaryDirectory() as plots:
+        if importlib.util.find_spec("matplotlib") is not None:
+            viz_cases.main(["HMG", "--data_dir", ARTIFACTS, "--plots_dir",
+                            plots])
+            for dim in (2, 3):
+                polytope.main([str(dim), "--out", os.path.join(
+                    plots, f"polytope_{dim}d.png")])
+            made = sorted(os.listdir(plots))
+            if made != sorted(hmg + ["polytope_2d.png", "polytope_3d.png"]):
+                fail(f"viz.cases HMG and viz.polytope drew {made}")
+            print(f"plots: {made} drawn", flush=True)
+            return
+        # No matplotlib here: every figure's data goes through the same
+        # selection, labels and plot functions into a recorder.
+        figures = []
+
+        class Recorder(viz_graph.Plotter):
+            def __init__(self, args):
+                self.args, self.lines = args, []
+                figures.append(self)
+
+            def plot_pairs(self, pairs, label, style=None):
+                self.lines.append((label, len(pairs)))
+
+            def fmt_err(self):
+                pass
+
+            def finish(self, title=None):
+                pass
+
+        real = viz_graph.Plotter
+        viz_graph.Plotter = Recorder
+        try:
+            viz_cases.main(["HMG", "--data_dir", ARTIFACTS, "--plots_dir",
+                            plots])
+        finally:
+            viz_graph.Plotter = real
+    names = sorted(f"{f.args.file_name}.png" for f in figures)
+    decs = {"BEC": 4, "BSC": 5, "BIAWGN": 5}
+    for f in figures:
+        n_dec = decs[f.args.file_name.split("__")[1].split("_")[0]]
+        if len(f.lines) != n_dec or any(n < 9 for _, n in f.lines):
+            fail(f"viz.cases HMG figure {f.args.file_name}: {f.lines}")
+    if names != hmg:
+        fail(f"viz.cases HMG selected {names}")
+    print("plots: matplotlib is not installed on this machine, so nothing "
+          "was drawn; viz.cases HMG selected its six figures' curves from "
+          "the artifacts: " + "; ".join(
+              f"{f.args.file_name} " + ", ".join(
+                  f"{lb} ({n} points)" for lb, n in f.lines)
+              for f in figures), flush=True)
 
 
 def main() -> None:
@@ -1678,6 +2004,9 @@ def main() -> None:
     timed["lt_peel"], launches["lt_peel"] = lt_phase(card)
     knames.append("lt_peel")
     max_err["lt_peel"] = 0      # phase 6 fails on any difference
+
+    # -- 7. ADMMA and the plots ----------------------------------------------
+    launches["admm_decode"] += admma_phase(card)
 
     csrc = "ldpc_decoders_tpu_torch/csrc/"
     pallas = "ldpc_decoders_tpu/ops/pallas_bp.py:"

@@ -19,8 +19,7 @@ Case registry: HMG, MAR, REG_BAD, REG_ENS, IREG_ENS. What runs:
   (``ENSEMBLE_MAX_ITER``), REG_ENS at 10. ``--no-ensemble`` runs the
   per-member RunConfigs one by one;
 - HMG (ML, LP, SPA, MSA, ADMM on Hamming(7,4)) and MAR (ADMM and the five
-  BP legs on margulis) run whole; a case that holds a decoder not ported
-  yet would stop with that decoder's ROADMAP item before any run starts.
+  BP legs on margulis) run whole.
 
 Precision is explicit. The JAX harness moves a float32 biAWGN BP run to
 its bf16 kernel on a chip and keeps the BSC in float32; the port's
@@ -38,7 +37,6 @@ import dataclasses
 import logging
 from typing import Iterator, List
 
-from ldpc_decoders_tpu_torch.channels import CHANNELS
 from ldpc_decoders_tpu_torch.harness import (
     CapSweepRunner,
     MonteCarloRunner,
@@ -52,10 +50,6 @@ from ldpc_decoders_tpu_torch.utils.registry import Registry
 
 all_cases = Registry()
 reg_case = all_cases.reg
-
-# Decoders of the registry not ported yet -> ROADMAP item.
-_DECODER_ITEM = {"ADMMA": "A.13"}
-
 
 def stp(init: float, step: float, count: int) -> List[float]:
     return [init + i * step for i in range(count)]
@@ -169,8 +163,7 @@ def _plan(case_names, use_ensemble: bool,
           joint_ensemble: bool = False) -> list:
     """The runs of the named cases as (case, kind, cfg, extra): extra is
     the cap labels of a "caps" run and the member codes of a "rotating" or
-    "joint" ensemble run (whose cfg.code is the case's name, a label).
-    Raises, naming what is not ported, before anything runs."""
+    "joint" ensemble run (whose cfg.code is the case's name, a label)."""
     plan = []
     for name in case_names:
         if use_ensemble and name in ENSEMBLE_MEMBERS:
@@ -184,11 +177,6 @@ def _plan(case_names, use_ensemble: bool,
         else:
             plan += [(name, "plain", cfg, None)
                      for cfg in all_cases.get(name)()]
-    for name, _, cfg, _ in plan:
-        if cfg.decoder not in CHANNELS[cfg.channel].DECODERS:
-            raise NotImplementedError(
-                f"case {name}: decoder {cfg.decoder!r} on {cfg.channel} is "
-                f"not ported yet (ROADMAP {_DECODER_ITEM[cfg.decoder]})")
     return plan
 
 

@@ -6,8 +6,8 @@ erasure is symbol 2. SPA and MSA are both the ternary-message erasure SPA
 (the reference aliases them on this channel), which decodes the symbols
 themselves, not an LLR. ``llr`` is the "safe infinity" table (+-1e8 for
 known symbols, 0 for erasures) that the LLR-domain decoders of this
-channel (LP, ADMM) take; ML picks uniformly among the codewords compatible
-with the non-erased positions.
+channel (LP, ADMM, ADMMA) take; ML picks uniformly among the codewords
+compatible with the non-erased positions.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from ldpc_decoders_tpu_torch.channels.bsc import (
     _MLWrapped,
 )
 from ldpc_decoders_tpu_torch.decoders.admm import ADMMDecoder
+from ldpc_decoders_tpu_torch.decoders.admma import ADMMADecoder
 from ldpc_decoders_tpu_torch.decoders.bec_spa import ERASURE, BECSPADecoder
 from ldpc_decoders_tpu_torch.decoders.lp import LPDecoder
 from ldpc_decoders_tpu_torch.decoders.ml import MLBEC
@@ -73,4 +74,9 @@ def ADMM(code, device=None, **kw):
     return _LLRWrapped(ADMMDecoder(code.graph, device=device, **kw), llr)
 
 
-DECODERS = {"ML": ML, "SPA": SPA, "MSA": MSA, "LP": LP, "ADMM": ADMM}
+def ADMMA(code, device=None, **kw):
+    return _LLRWrapped(ADMMADecoder(code.graph, device=device, **kw), llr)
+
+
+DECODERS = {"ML": ML, "SPA": SPA, "MSA": MSA, "LP": LP, "ADMM": ADMM,
+            "ADMMA": ADMMA}

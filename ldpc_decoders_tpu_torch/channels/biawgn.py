@@ -18,6 +18,7 @@ from ldpc_decoders_tpu_torch.channels.bsc import (
     _MLWrapped,
 )
 from ldpc_decoders_tpu_torch.decoders.admm import ADMMDecoder
+from ldpc_decoders_tpu_torch.decoders.admma import ADMMADecoder
 from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
 from ldpc_decoders_tpu_torch.decoders.lp import LPDecoder
 from ldpc_decoders_tpu_torch.decoders.ml import MLBiAWGN
@@ -75,4 +76,9 @@ def ADMM(code, device=None, **kw):
     return _LLRWrapped(ADMMDecoder(code.graph, device=device, **kw), llr)
 
 
-DECODERS = {"ML": ML, "SPA": SPA, "MSA": MSA, "LP": LP, "ADMM": ADMM}
+def ADMMA(code, device=None, **kw):
+    return _LLRWrapped(ADMMADecoder(code.graph, device=device, **kw), llr)
+
+
+DECODERS = {"ML": ML, "SPA": SPA, "MSA": MSA, "LP": LP, "ADMM": ADMM,
+            "ADMMA": ADMMA}

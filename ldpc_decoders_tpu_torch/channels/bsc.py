@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ldpc_decoders_tpu_torch.decoders.admm import ADMMDecoder
+from ldpc_decoders_tpu_torch.decoders.admma import ADMMADecoder
 from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
 from ldpc_decoders_tpu_torch.decoders.lp import LPDecoder
 from ldpc_decoders_tpu_torch.decoders.ml import MLBSC
@@ -90,4 +91,9 @@ def ADMM(code, device=None, **kw):
     return _LLRWrapped(ADMMDecoder(code.graph, device=device, **kw))
 
 
-DECODERS = {"ML": ML, "SPA": SPA, "MSA": MSA, "LP": LP, "ADMM": ADMM}
+def ADMMA(code, device=None, **kw):
+    return _LLRWrapped(ADMMADecoder(code.graph, device=device, **kw))
+
+
+DECODERS = {"ML": ML, "SPA": SPA, "MSA": MSA, "LP": LP, "ADMM": ADMM,
+            "ADMMA": ADMMA}

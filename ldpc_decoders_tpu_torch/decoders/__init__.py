@@ -1,2 +1,3 @@
 """Decoders: BP (min-sum, SPA) and its ensemble form, the erasure SPA,
-ADMM, ML, LP and the pseudo-codeword search."""
+ADMM and ADMMA (its learned projection), ML, LP and the pseudo-codeword
+search."""

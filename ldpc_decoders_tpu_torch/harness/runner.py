@@ -17,6 +17,11 @@ consumed, so the min-wec estimator stays unbiased.
 Each sweep point draws from its own ``torch.Generator`` seeded from
 (seed, point index).
 
+A stateful decoder (ADMMA, which trains its MLP inside ``decode`` in train
+mode) is one object for the whole run: its chunks decode one after the
+other in dispatch order (``decode`` runs eagerly on the host's one
+stream), so the training carries across chunks and sweep points.
+
 A code ensemble runs through one runner: ``rotate_member`` swaps the
 decoder to the next member's graph and tables (the kernels take their
 tables as arguments, so nothing is rebuilt) with the member's Saver and
@@ -91,12 +96,16 @@ class RunConfig:
     mu: float = 3.0            # ADMM penalty
     eps: float = 1e-5          # ADMM convergence tolerance
     allow_pseudo: bool = False  # LP/ADMM: keep fractional pseudo-codewords
+    layers: Sequence[int] = (100, 100)   # ADMMA: the MLP's hidden widths
+    train: bool = False        # ADMMA: train online (exact projection)
+    apprx: int = -1            # ADMMA: the MLP's last iteration, then exact
     iter_cap: int = 2000
     batch: int = 4096          # codewords per chunk
     seed: int = 0
     log_freq: float = 5.0
     max_words: Optional[int] = None   # safety cap per sweep point
     data_dir: Optional[str] = None
+    cache_dir: Optional[str] = None   # ADMMA checkpoints ("cache" if None)
     profile: bool = False             # LoopProfiler per-section timings
     # BP message type, "float32" or "bfloat16": the kernel of that type
     # runs; nothing downgrades f32 to bf16 behind the caller's back.
@@ -115,7 +124,9 @@ class RunConfig:
 
     def decoder_kwargs(self) -> dict:
         return dict(max_iter=self.max_iter, mu=self.mu, eps=self.eps,
-                    allow_pseudo=self.allow_pseudo, iter_cap=self.iter_cap,
+                    allow_pseudo=self.allow_pseudo, layers=list(self.layers),
+                    train=self.train, apprx=self.apprx,
+                    iter_cap=self.iter_cap, cache_dir=self.cache_dir,
                     msg_dtype=self.msg_dtype, inf_policy=self.inf_policy,
                     device=self.device)
 

@@ -1,11 +1,14 @@
 """Command-line entry point: ``python -m ldpc_decoders_tpu_torch.main <channel> <code> <decoder>``.
 
-The JAX package's argv contract for everything the port runs, plus
-``--device`` (default ``cuda``). The JAX package's other flags are
-accepted; set to anything but their default they stop with an error that
-names the ROADMAP item still to port. ``--bf16`` selects the bf16-message
-kernel; without it the f32 kernel runs (nothing is downgraded silently,
-unlike the JAX harness, which moves f32 biAWGN BP to its bf16 kernel).
+The JAX package's argv contract, ADMMA's ``--layers``, ``--train``,
+``--apprx`` and ``--cache_dir`` included, plus ``--device`` (default
+``cuda``). ``--mesh``, ``--mesh-code`` and ``--kernel`` are accepted; set
+to anything but their default they stop with an error that names the
+ROADMAP item still to port. ``--plots_dir`` is accepted and unused, as in
+the JAX CLI (the plots are ``viz.graph`` and ``viz.cases``). ``--bf16``
+selects the bf16-message kernel; without it the f32 kernel runs (nothing
+is downgraded silently, unlike the JAX harness, which moves f32 biAWGN BP
+to its bf16 kernel).
 ``--presort`` is accepted for argv compatibility and has no effect: it
 aligns the JAX ADMM kernel's per-block exit with per-word cost, and the
 CUDA kernel's exit is per word. ``--iter-cap`` bounds a run to convergence
@@ -25,13 +28,10 @@ from ldpc_decoders_tpu_torch.utils.file import make_dir_if_not_exists, resolve_d
 
 # Flags of the JAX CLI whose features are not ported -> ROADMAP item.
 _NOT_PORTED = {
-    "--layers": "A.13 (ADMMA)", "--train": "A.13 (ADMMA)",
-    "--apprx": "A.13 (ADMMA)", "--cache_dir": "A.13 (ADMMA)",
-    "--plots_dir": "A.16 (plots)", "--mesh": "A.15 (multi-device)",
+    "--mesh": "A.15 (multi-device)",
     "--mesh-code": "A.15 (edge-sharded BP)",
     "--kernel": "A.4 (the port has one route per device)",
 }
-_DECODER_ITEM = {"ADMMA": "A.13"}
 
 
 def bind_parser_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -41,10 +41,9 @@ def bind_parser_common(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     parser.add_argument("--data_dir", default=path_("data"),
                         help="location for writing simulation output")
     parser.add_argument("--cache_dir", default=path_("cache"),
-                        help="cache directory for ADMMA checkpoints "
-                             "(not ported)")
+                        help="cache directory for ADMMA checkpoints")
     parser.add_argument("--plots_dir", default=path_("plots"),
-                        help="save location of plots (not ported)")
+                        help="save location of plots")
     parser.add_argument("--debug", action="store_true", help="log debug info")
     parser.add_argument("--console", action="store_true",
                         help="log to console instead of <data_dir>/test.log")
@@ -77,9 +76,10 @@ def setup_parser() -> argparse.ArgumentParser:
     parser.add_argument("--layers", nargs="+", type=int, default=[100, 100],
                         help="ADMMA MLP hidden layers")
     parser.add_argument("--train", action="store_true",
-                        help="train ADMMA online")
+                        help="train ADMMA online against the exact projection")
     parser.add_argument("--apprx", type=int, default=-1,
-                        help="ADMMA approximate-projection iterations")
+                        help="ADMMA: iterations using the approximate "
+                             "projection before switching to exact")
     parser.add_argument("--log-freq", type=float, default=5.0,
                         help="status log cadence, seconds")
     parser.add_argument("--batch", type=int, default=4096,
@@ -124,9 +124,6 @@ def setup_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     parser = setup_parser()
     args = parser.parse_args(argv)
-    if args.decoder in _DECODER_ITEM:
-        parser.error(f"decoder {args.decoder!r} is not ported yet "
-                     f"(ROADMAP {_DECODER_ITEM[args.decoder]})")
     for flag, item in _NOT_PORTED.items():
         dest = flag[2:].replace("-", "_")
         if getattr(args, dest) != parser.get_default(dest):
@@ -150,10 +147,12 @@ def main(argv=None) -> dict:
         channel=args.channel, code=args.code, decoder=args.decoder,
         params=args.params, codeword=args.codeword, min_wec=args.min_wec,
         max_iter=args.max_iter, mu=args.mu, eps=args.eps,
-        allow_pseudo=args.allow_pseudo, iter_cap=args.iter_cap,
+        allow_pseudo=args.allow_pseudo, layers=args.layers, train=args.train,
+        apprx=args.apprx, iter_cap=args.iter_cap,
         batch=args.batch, seed=args.seed,
         log_freq=args.log_freq, max_words=args.max_words,
-        data_dir=args.data_dir, profile=args.profile,
+        data_dir=args.data_dir, cache_dir=args.cache_dir,
+        profile=args.profile,
         msg_dtype="bfloat16" if args.bf16 else "float32",
         inf_policy=args.inf_policy,
         pipeline=args.pipeline, adaptive_pipeline=not args.fixed_pipeline,

@@ -55,7 +55,7 @@ cannot take raises. The outputs do not depend on it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -151,11 +151,19 @@ def admm_geometry(C: int, V: int, Dc: int) -> Geometry:
 
 
 def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
-                      eps: float, max_iter: int, n_edge: int) -> tuple:
+                      eps: float, max_iter: int, n_edge: int,
+                      z_update: Optional[Callable] = None) -> tuple:
     """The plain PyTorch version: llr [B, V] f32 -> (x_hat [B, V] int32,
     iters [B] int32, x [B, V] f32, the fractional solution). Batched over
     [B, C, Dc] tensors, words frozen with ``torch.where``; the host loop
-    stops when every word is done."""
+    stops when every word is done, so it runs as many z-updates as the
+    slowest word needs.
+
+    ``z_update(it, v)`` replaces the z-update, the projection of the rows
+    v = x_e + lam/mu [B, C, Dc] onto the parity polytope, for every word,
+    frozen ones included; ``it`` counts the loop's iterations from 0.
+    ADMMA (``decoders/admma.py``) supplies a learned projection there.
+    Without it the loop is the kernel's arithmetic, bit for bit."""
     f32 = torch.float32
     dev = llr.device
     B, V = llr.shape
@@ -181,7 +189,9 @@ def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
                                     0.0)
         x_new = ((acc - g) / var_deg).clamp(0.0, 1.0)
         x_e = torch.where(t.cmask, x_new[:, t.chk_var], 0.0)
-        z_new = project_parity_polytope(x_e + lam_mu, mask=t.cmask)
+        v = x_e + lam_mu
+        z_new = (project_parity_polytope(v, mask=t.cmask) if z_update is None
+                 else z_update(it, v))
         e1 = x_e - z_new
         e2 = z - z_new
         lam_new = lam + mu_t * e1

@@ -191,6 +191,19 @@ def exclusive_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([p + s for p, s in zip(pre, suf)], dim=-1)
 
 
+def exclusive_min(x: torch.Tensor) -> torch.Tensor:
+    """Leave-one-out min along the last axis as min(prefix, suffix); +inf
+    where a row has one slot. min is exact, so its order does not matter."""
+    inf = torch.full_like(x[..., :1], float("inf"))
+    if x.shape[-1] == 1:
+        return inf
+    prefix = torch.cat([inf, torch.cummin(x, dim=-1).values[..., :-1]],
+                       dim=-1)
+    suffix = torch.cat([torch.cummin(x.flip(-1), dim=-1).values.flip(-1)
+                        [..., 1:], inf], dim=-1)
+    return torch.minimum(prefix, suffix)
+
+
 def exclusive_sign_parity(neg: torch.Tensor) -> torch.Tensor:
     """Leave-one-out sign product along the last axis from a 0/1
     negativity mask, as negative-count parity. Returns int +-1."""

@@ -1,1 +1,2 @@
-"""Analysis of simulation results: ensemble averages and LT plots."""
+"""Analysis of simulation results: result plots and their batch cases,
+parity-polytope demos, ensemble averages and LT plots."""

@@ -178,7 +178,7 @@ def test_bec_send_erasure_rate(p):
 
 def test_bec_registry():
     assert CHANNELS["bec"] is bec
-    assert set(bec.DECODERS) == {"ML", "SPA", "MSA", "LP", "ADMM"}
+    assert set(bec.DECODERS) == {"ML", "SPA", "MSA", "LP", "ADMM", "ADMMA"}
     assert bec.DECODERS["MSA"] is bec.DECODERS["SPA"]   # the reference's alias
     dec = bec.DECODERS["SPA"](get_code("7_4_hamming"), device="cpu",
                               max_iter=4, msg_dtype="float32",

@@ -33,6 +33,7 @@ from ldpc_decoders_tpu.harness import cap_sweep as jax_cap_sweep  # noqa: E402
 from ldpc_decoders_tpu.harness import runner as jax_runner  # noqa: E402
 from ldpc_decoders_tpu.ops.pallas_bp import msa_decode_pallas, slot_tables  # noqa: E402
 from ldpc_decoders_tpu_torch import campaign  # noqa: E402
+from ldpc_decoders_tpu_torch.channels import CHANNELS, DECODER_NAMES  # noqa: E402
 from ldpc_decoders_tpu_torch.codes import get_code  # noqa: E402
 from ldpc_decoders_tpu_torch.decoders.bec_spa import BECSPADecoder  # noqa: E402
 from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder  # noqa: E402
@@ -309,12 +310,13 @@ def test_campaign_refuses_unported():
                 (c.code, c.channel, c.decoder, c.max_iter)
                 for c in campaign.all_cases.get(case)())
     # HMG (ML, LP, SPA, MSA, ADMM) and MAR (ADMM + the five BP legs) plan
-    # whole; only ADMMA is left without a port.
+    # whole; every decoder of the JAX package has its port on every channel.
     plan = campaign._plan(["HMG", "MAR"], True)
     assert len(plan) == 14 + 8
     assert {cfg.decoder for _, _, cfg, _ in plan} == {"ML", "LP", "SPA",
                                                       "MSA", "ADMM"}
-    assert campaign._DECODER_ITEM == {"ADMMA": "A.13"}
+    assert all(list(mod.DECODERS) == DECODER_NAMES
+               for mod in CHANNELS.values())
 
 
 @pytest.mark.parametrize("case,n_runs,param", [("HMG", 14, 0.3),

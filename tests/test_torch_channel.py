@@ -95,7 +95,8 @@ def test_bsc_send_flip_moments(p):
 def test_channel_registry():
     assert set(CHANNELS) == {"bec", "biawgn", "bsc"}
     for mod in CHANNELS.values():
-        assert set(mod.DECODERS) == {"ML", "SPA", "MSA", "LP", "ADMM"}
+        assert set(mod.DECODERS) == {"ML", "SPA", "MSA", "LP", "ADMM",
+                                     "ADMMA"}
     from ldpc_decoders_tpu_torch.codes import get_code
     code = get_code("7_4_hamming")
     # The JAX defaults: BSC BP checks the syndrome of the received word,

@@ -2,7 +2,8 @@
 kernels against their plain PyTorch versions, bit for bit (decisions and
 iteration counts; ADMM's fractional x too), single-cap and with ``caps=``
 snapshot planes; the LT peel kernel against the plain sparse engine and
-the dense engine (results, resolved sets, recovered bits).
+the dense engine (results, resolved sets, recovered bits); ADMMA's train
+mode against the ADMM kernel.
 Marked ``cuda`` and skipped without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -606,3 +607,39 @@ def test_lt_kernel_refusals(cuda):
             "msg": torch.zeros((200, 10000), dtype=torch.int32)}
     with pytest.raises(MemoryError):
         big.simulate(pads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,channel,param", [("7_4_hamming", "bsc", 0.1),
+                                                ("1200_3_6_ldpc", "biawgn",
+                                                 2.5)])
+def test_admma_train_mode_equals_admm_kernel(cuda, tmp_path, name, channel,
+                                             param):
+    """ADMMA's train mode decodes with the exact projection through the plain
+    ADMM loop on the card: it must equal the ADMM kernel bit for bit, and
+    launch no kernel itself."""
+    from ldpc_decoders_tpu_torch.decoders.admma import ADMMADecoder
+    from ldpc_decoders_tpu_torch.utils.math import pseudo_to_cw_tensor
+
+    code = get_code(name)
+    mod = {"bsc": bsc, "biawgn": biawgn}[channel]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.ones((512, code.get_n()), dtype=torch.int32, device=cuda)
+    llr = mod.llr(mod.send(x, param, gen), param)
+    kw = dict(mu=3.0, eps=1e-5, max_iter=50)
+    t = bp_tables(code.graph.to(cuda))
+    want = admm_kernel.admm_decode_cuda(llr, t, n_edge=code.graph.n_edge,
+                                        **kw)
+    before = admm_kernel.admm_decode_cuda.launches
+    for pseudo in (False, True):
+        dec = ADMMADecoder(code.graph, train=True, layers=[32],
+                           allow_pseudo=pseudo, cache_dir=str(tmp_path),
+                           device=cuda, **kw)
+        w0 = dec.mlp.w0.detach().clone()
+        x_hat, iters = dec.decode(llr)
+        torch.cuda.synchronize()
+        assert torch.equal(iters, want[1])
+        assert torch.equal(x_hat, pseudo_to_cw_tensor(want[2], True)
+                           if pseudo else want[0])
+        assert not torch.equal(w0, dec.mlp.w0)
+    assert admm_kernel.admm_decode_cuda.launches == before

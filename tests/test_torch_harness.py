@@ -82,13 +82,13 @@ def test_cli_cpu_run_matches_artifact(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["bec", "1200_3_6_ldpc", "ADMMA"],
-    ["bsc", "1200_3_6_ldpc", "ADMMA"],
-    ["biawgn", "1200_3_6_ldpc", "ADMMA"],
-    ["biawgn", "1200_3_6_ldpc", "MSA", "--layers", "50"],
+    ["bec", "1200_3_6_ldpc", "ADMMA", "--mesh", "4"],
+    ["bsc", "1200_3_6_ldpc", "ADMMA", "--train", "--mesh", "2"],
+    ["biawgn", "1200_3_6_ldpc", "ADMMA", "--kernel", "pallas"],
+    ["biawgn", "1200_3_6_ldpc", "MSA", "--layers", "50", "--mesh-code", "2"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--mesh", "2"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--kernel", "xla"],
-    ["bsc", "1200_3_6_ldpc", "ADMM", "--train"],
+    ["bsc", "1200_3_6_ldpc", "ADMM", "--train", "--kernel", "xla"],
     ["bsc", "1200_3_6_ldpc", "SPA", "--mesh-code", "2"],
 ])
 def test_cli_refuses_unported(argv, capsys):
@@ -122,6 +122,12 @@ def test_cli_flags_map_to_config():
     assert args.allow_pseudo and args.presort == "on"
     for dec in ("ML", "LP"):
         assert port_main.parse_args(["bec", "7_4_hamming", dec]).decoder == dec
+    args = port_main.parse_args([
+        "biawgn", "1200_3_6_ldpc", "ADMMA", "--layers", "50", "20",
+        "--train", "--apprx", "3", "--cache_dir", "c", "--plots_dir", "p"])
+    assert args.decoder == "ADMMA" and args.layers == [50, 20]
+    assert args.train and args.apprx == 3
+    assert args.cache_dir == "c" and args.plots_dir == "p"
 
 
 def test_runner_random_codeword_and_caps():
@@ -137,12 +143,12 @@ def test_runner_random_codeword_and_caps():
     with pytest.raises(ValueError, match="generator"):
         MonteCarloRunner(RunConfig(channel="biawgn", code="1200_3_6_ldpc",
                                    decoder="MSA", codeword=-1, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MonteCarloRunner(RunConfig(channel="bec", code="7_4_hamming",
-                                   decoder="ADMMA", device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MonteCarloRunner(RunConfig(channel="bsc", code="7_4_hamming",
-                                   decoder="ADMMA", device="cpu"))
+    # ADMMA in eval mode needs a trained model in its cache directory.
+    for channel in ("bec", "bsc"):
+        with pytest.raises(FileNotFoundError, match="model_4-100-100-4"):
+            MonteCarloRunner(RunConfig(channel=channel, code="7_4_hamming",
+                                       decoder="ADMMA", device="cpu",
+                                       cache_dir=os.path.join(ROOT, "none")))
     with pytest.raises(ValueError, match="inf_policy"):
         MonteCarloRunner(RunConfig(channel="bsc", code="7_4_hamming",
                                    decoder="SPA", inf_policy="clip",
@@ -251,8 +257,10 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "need = ['codes.ensembles', 'decoders.bp_ensemble',"
         " 'harness.ensemble_runner', 'viz.ens_average',"
-        " 'design.density_evolution']\n"
+        " 'design.density_evolution', 'decoders.admma', 'viz.graph',"
+        " 'viz.cases', 'viz.polytope', 'utils.mpl']\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in need)\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('ldpc_decoders_tpu') and not"
         " m.startswith('ldpc_decoders_tpu_torch')]\n"

@@ -191,10 +191,10 @@ def test_find_pcws_equals_jax(hamming, jax_hamming, decoder):
 
 
 @pytest.mark.parametrize("mod,param", [(bsc, 0.1), (biawgn, 2.0), (bec, 0.3)])
-def test_channel_factories(hamming, mod, param):
-    """Every channel builds ML, LP and ADMM; their call shape is the
+def test_channel_factories(hamming, mod, param, tmp_path):
+    """Every channel builds ML, LP, ADMM and ADMMA; their call shape is the
     runner's: decode(y, param, generator) -> (x_hat, aux)."""
-    assert list(mod.DECODERS) == ["ML", "SPA", "MSA", "LP", "ADMM"]
+    assert list(mod.DECODERS) == ["ML", "SPA", "MSA", "LP", "ADMM", "ADMMA"]
     gen = _gen(6)
     x = torch.ones((64, 7), dtype=torch.int32)
     y = mod.send(x, param, gen)
@@ -209,6 +209,15 @@ def test_channel_factories(hamming, mod, param):
     # ADMM solves the LP: the hard decisions agree wherever the LP optimum
     # is integral and unique, i.e. on most words.
     assert (x_admm.numpy() == x_lp).all(axis=1).mean() >= 0.8
+    # ADMMA in train mode decodes with the exact projection: ADMM's output,
+    # through the same LLR map of the channel.
+    admma = mod.DECODERS["ADMMA"](hamming, device="cpu", max_iter=200,
+                                  train=True, layers=[8],
+                                  cache_dir=str(tmp_path))
+    x_admma, aux_a = admma.decode(y, param, gen)
+    assert torch.equal(x_admma, x_admm)
+    assert torch.equal(aux_a["iters"], aux["iters"])
+    assert admma.dec.track_iter_hist and admma.dec.stateful
     if mod is bec:
         table = bec.llr(torch.tensor([0, 1, 2]))
         assert table.tolist() == [1e8, -1e8, 0.0]
