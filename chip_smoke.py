@@ -184,6 +184,39 @@ Phases (any failure exits non-zero and prints no result line):
    curves (files, labels, points) go through the same selection and plot
    functions into a recorder and are checked, and nothing is drawn.
 
+8. Several ranks (``parallel/``: one process per rank over
+   ``torch.distributed``). Without a card per rank the ranks share the card
+   over gloo (``spawn(..., backend="gloo")``). Two ranks, in one spawn:
+   (a) the flagship at full width, LDPC(1200,3,6) biAWGN MSA bf16 at 2.5
+   and 3.0 dB, codeword 1, global B = 16384 (8192 words a rank): each
+   point's summed tallies must equal, word for word, the sum of
+   single-process replays of each rank's stream at B = 8192, chunk for
+   chunk, for the chunks the mesh run took; ``msa_decode.cu`` must launch
+   in each rank; the step's cw/s at 3.0 dB over 4,194,304 words at one rank
+   (before and after the spawn) and at two ranks, with the tally summed on
+   the host at consume (the default over gloo) and on the card at dispatch
+   (the default over NCCL), in turns host, device, device, host; (b) ADMM at 2.5 dB, cap 50, B = 16384: the same exact replay, the
+   2000-bin histogram included; (c) REG_ENS biAWGN SPA bf16 2.0 dB over its
+   first two members, rotating (B = 16384) and joint (2048 per member):
+   the same replay per member; (d) the edge-sharded decoder
+   (``EdgeShardedBPDecoder``, a 2-rank ``code`` mesh) on LDPC(1200,3,6)
+   and margulis, MSA and SPA under both policies, biAWGN 2.0 dB, B = 4096,
+   cap 10: against ``BPDecoder``'s f32 kernel on the same LLRs at most one
+   word may differ, and with none the iteration counts must be equal; its
+   ms beside the kernel's; then the harness on a 1 x 2 code mesh (margulis
+   MSA 2.0 dB, B = 4096) and, in a spawn of four ranks, on a 2 x 2 batch x
+   code mesh (LDPC(1200,3,6) BSC MSA p=0.035), each WER within 6 SE of one
+   rank's; (e) ADMMA train, B = 4096, layers [100, 100], 2.5 dB cap 50:
+   the MLPs bit-equal on both ranks and moved from their start, WER within
+   6 SE of one rank; (f) the luby CLI with ``--mesh 2`` at c = 0.03, 128
+   sims, ``--batch 64``: ``arr`` equals the rank-ordered concatenation of
+   each rank's stream replayed alone, and its mean and std lie within 4 SE
+   of the artifact as in phase 6; s/sim at one rank (phase 6) and at two,
+   and the device's idle share; (g) with two cards or more, (a) and its
+   two tally designs again over NCCL, a card per rank; else the phase says
+   that NCCL was not run. Every
+   rank must import no jax, and the ranks must hold the same results.
+
 The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
 bytes it must move (input read once, K output planes and the iteration
 counts written once) over 3.35 TB/s, and its operations over 67 TFLOP/s
@@ -284,6 +317,16 @@ LT_KEYS = ("edge_sym", "edge_var", "msg")
 # ADMMA (phase 7): the CLI's MLP width and the cap of its run.
 ADMMA_LAYERS = [100, 100]
 ADMMA_CAP = 50
+# Several ranks (phase 8): ranks, the flagship's points and min-wec (several
+# chunks of 16384 at 3.0 dB), the words of each timed flagship run, the
+# edge-sharded batch, and the min-wec of the REG_ENS members (two chunks of
+# 16384 at WER ~0.34).
+MESH_RANKS = 2
+MESH_FLAG_PARAMS = [2.5, 3.0]
+MESH_FLAG_MIN_WEC = 5000
+MESH_RATE_WORDS = 256 * B_STEP
+MESH_EDGE_B = 4096
+MESH_ENS_MIN_WEC = 8000
 
 
 def launch_variants(kname: str) -> tuple:
@@ -563,7 +606,9 @@ def lt_phase(card: str) -> tuple:
         entries[c] = {"ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
                       "bound_by": "bytes", "library_ms": ms_d,
                       "layout_ms": ms_lay, "batch": B,
-                      "rounds_max": int(rounds.max())}
+                      "rounds_max": int(rounds.max()),
+                      "cli_s_per_sim": wall / LT_CLI_SIMS,
+                      "cli_idle": 1 - busy / wall}
     return dict(entries["0.03"], c=0.03, by_c=entries), launches
 
 
@@ -779,6 +824,297 @@ def admma_phase(card: str) -> int:
           "iteration histograms equal at both points", flush=True)
     plot_checks()
     return n_admm
+
+
+def mesh_phase(card: str, lt_one: dict) -> dict:
+    """Phase 8, several ranks (``parallel/``), one process per rank. Ranks
+    share the card over gloo where it has no card for each. Returns each
+    kernel's launches in the ranks' main-path runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ldpc_decoders_tpu_torch import campaign
+    from ldpc_decoders_tpu_torch.decoders.admma import mlp_init
+    from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
+    from ldpc_decoders_tpu_torch.codes import get_code
+    from ldpc_decoders_tpu_torch.harness import MonteCarloRunner, RunConfig
+    from ldpc_decoders_tpu_torch.harness.runner import point_generator
+    from ldpc_decoders_tpu_torch.parallel import jobs, spawn
+
+    t_phase = time.perf_counter()
+    n = MESH_RANKS
+    common = dict(device="cuda", log_freq=1e9)
+    flag = RunConfig("biawgn", FLAG, "MSA", MESH_FLAG_PARAMS, codeword=1,
+                     min_wec=MESH_FLAG_MIN_WEC, batch=B_STEP,
+                     msg_dtype="bfloat16", **common)
+    rate = dataclasses.replace(flag, params=[3.0], min_wec=10 ** 9,
+                               max_words=MESH_RATE_WORDS)
+    admm = RunConfig("biawgn", FLAG, "ADMM", [2.5], codeword=1, min_wec=2000,
+                     max_iter=50, batch=B_STEP, **common)
+    members = campaign.ENSEMBLE_MEMBERS["REG_ENS"][:2]
+    rot = RunConfig("biawgn", "REG_ENS", "SPA", [2.0], codeword=0,
+                    min_wec=MESH_ENS_MIN_WEC, batch=B_STEP,
+                    msg_dtype="bfloat16", **common)
+    joint = dataclasses.replace(rot, batch=B_JOINT, min_wec=1000)
+    # (code, channel, param, codeword, variant, decoder keywords)
+    edge = [(c, ch, p, cw, v, dict(kw, max_iter=10, check_init=False))
+            for c, ch, p, cw in ((FLAG, "biawgn", 2.0, 0),
+                                 ("margulis", "biawgn", 2.0, 0))
+            for v, kw in (("MSA", {}), ("SPA", {"inf_policy": "saturate"}),
+                          ("SPA", {"inf_policy": "reference"}))]
+    code_1d = RunConfig("biawgn", "margulis", "MSA", [2.0], codeword=1,
+                        min_wec=100, batch=MESH_EDGE_B, **common)
+    code_2d = RunConfig("bsc", FLAG, "MSA", [0.035], codeword=1, min_wec=200,
+                        batch=MESH_EDGE_B, **common)
+    lt_argv = [str(LT_K), str(LT_N), "0.03", str(LT_DELTA), str(LT_CLI_SIMS),
+               "--batch", str(LT_BATCH), "--mesh", str(n), "--console"]
+
+    def replay(cfg, seed, idx, param, chunks):
+        """Sum over the ranks r of ``chunks`` chunks of rank r's stream,
+        decoded in this process alone at batch / n."""
+        runner = MonteCarloRunner(dataclasses.replace(
+            cfg, batch=cfg.batch // n, seed=seed, data_dir=None))
+        acc = 0
+        for r in range(n):
+            gen = point_generator(runner.device, seed, idx, r, n)
+            for _ in range(chunks):
+                host, event = runner._dispatch(param, gen)
+                event.synchronize()
+                acc = acc + host.numpy().astype(np.int64)
+        return acc
+
+    def hold(label, st, want):
+        got = [st["wec"], st["bec"]] + (st["dec"]["iter"] if "dec" in st
+                                        else [])
+        if got != want.tolist():
+            fail(f"mesh {label}: the ranks' summed tallies != the replays "
+                 f"of each rank's stream")
+
+    def strip(r):
+        """Results without the ranks' own clocks."""
+        if isinstance(r, dict):
+            return {k: strip(v) for k, v in r.items()
+                    if k != "words_per_sec"}
+        return r
+
+    def wer_close(label, a, b):
+        se = math.sqrt(a["wer"] / a["tot"] + b["wer"] / b["tot"])
+        z = (a["wer"] - b["wer"]) / se if se else 0.0
+        print(f"mesh {label}: wer {a['wer']:.6f} ({a['wec']}/{a['tot']}) vs "
+              f"one rank {b['wer']:.6f} ({b['wec']}/{b['tot']}): "
+              f"{z:.3f} SE", flush=True)
+        if not abs(a["wer"] - b["wer"]) < 6 * se + 1e-9:
+            fail(f"mesh {label}: WER more than 6 SE from one rank")
+
+    def one_rank_rate():
+        return MonteCarloRunner(rate).run()[3.0]["words_per_sec"]
+
+    launches = {}
+
+    def count(outs, kname, label):
+        """Each rank launched ``kname`` and holds the same results."""
+        for o in outs:
+            if o["launches"][kname] < 1:
+                fail(f"mesh {label}: rank {o['rank']} did not launch {kname}")
+            if strip(o.get("results")) != strip(outs[0].get("results")):
+                fail(f"mesh {label}: the ranks' results differ")
+            launches[kname] = launches.get(kname, 0) + o["launches"][kname]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        admma_cfg = RunConfig("biawgn", FLAG, "ADMMA", [2.5], codeword=1,
+                              min_wec=100, max_iter=ADMMA_CAP, batch=4096,
+                              train=True, layers=ADMMA_LAYERS,
+                              cache_dir=os.path.join(tmp, "cache"), **common)
+        lt_dir = os.path.join(tmp, "lt")
+        tasks = [("harness", dict(cfg=flag)),
+                 *[("harness", dict(cfg=rate, tally=t))
+                   for t in ("host", "device", "device", "host")],
+                 ("harness", dict(cfg=admm)),
+                 ("harness", dict(cfg=rot, kind="rotating", members=members)),
+                 ("harness", dict(cfg=joint, kind="joint", members=members)),
+                 *[("edge_decode", dict(
+                     code=c, variant=v, device="cuda", llr=dict(
+                         channel=ch, param=p, words=MESH_EDGE_B, seed=80 + i,
+                         codeword=cw), **kw))
+                   for i, (c, ch, p, cw, v, kw) in enumerate(edge)],
+                 ("harness", dict(cfg=code_1d, n_code=n)),
+                 ("harness", dict(cfg=admma_cfg)),
+                 ("lt_cli", dict(argv=lt_argv + ["--data_dir", lt_dir])),
+                 ("lt_replay", dict(k=LT_K, n=LT_N, c=0.03, delta=LT_DELTA,
+                                    count=LT_CLI_SIMS // n,
+                                    batch=LT_BATCH // n, device="cuda"))]
+        rate_one = [one_rank_rate()]
+        t0 = time.perf_counter()
+        outs = spawn("ldpc_decoders_tpu_torch.parallel.jobs:sequence", n,
+                     args=(tasks,), device="cuda", backend="gloo")
+        spawn_s = time.perf_counter() - t0
+        rate_one.append(one_rank_rate())
+        res = {i: [o[i] for o in outs] for i in range(len(tasks))}
+        for i, (name, _) in enumerate(tasks):
+            for o in res[i]:
+                if name != "lt_replay" and o["jax"]:
+                    fail(f"mesh task {i}: rank {o['rank']} imported jax")
+        with open(os.path.join(lt_dir, f"luby-{LT_K}-{LT_N}-0.03-"
+                               f"{LT_DELTA}.json")) as fp:
+            lt_saved = json.load(fp)
+        lt_files = os.listdir(lt_dir)
+
+    # (a) the flagship: summed tallies == the replays, chunk for chunk.
+    a = res[0]
+    count(a, "msa_decode", "flagship")
+    for idx, p in enumerate(flag.params):
+        st = a[0]["results"][p]
+        chunks = st["tot"] // flag.batch
+        hold(f"flagship {p} dB", st, replay(flag, flag.seed, idx, p, chunks))
+        print(f"mesh flagship {p} dB, {n} ranks x {flag.batch // n} words: "
+              f"{chunks} chunks, wec {st['wec']} bec {st['bec']} == the sum "
+              f"of the ranks' single-process replays | {card}", flush=True)
+    cards = min(n, torch.cuda.device_count())
+    rates = {t: [] for t in ("host", "device")}
+    for i, t in zip(range(1, 5), ("host", "device", "device", "host")):
+        count(res[i], "msa_decode", "flagship rate")
+        rates[t].append(res[i][0]["results"][3.0]["words_per_sec"])
+    print(f"timing mesh flagship step MSA bf16 3.0 dB, B={B_STEP}, "
+          f"{MESH_RATE_WORDS} words: one rank {rate_one[0]:.1f} / "
+          f"{rate_one[1]:.1f} cw/s; {n} ranks over gloo on {cards} card(s), tally "
+          f"summed on the host {rates['host'][0]:.1f} / {rates['host'][1]:.1f}"
+          f" cw/s, on the card {rates['device'][0]:.1f} / "
+          f"{rates['device'][1]:.1f} cw/s | {card}", flush=True)
+
+    # (b) ADMM with its histogram.
+    b = res[5]
+    count(b, "admm_decode", "admm")
+    st = b[0]["results"][2.5]
+    hold("admm 2.5 dB", st, replay(admm, admm.seed, 0, 2.5,
+                                   st["tot"] // admm.batch))
+    print(f"mesh admm 2.5 dB cap 50: {st['tot'] // admm.batch} chunks, wec "
+          f"{st['wec']}, 2000-bin histogram == the replays' | {card}",
+          flush=True)
+
+    # (c) REG_ENS through both routes, member m seeded seed + m.
+    for i, label, cfg in ((6, "rotating", rot), (7, "joint", joint)):
+        count(res[i], "spa_ref_decode", f"REG_ENS {label}")
+        for m, name in enumerate(members):
+            st = res[i][0]["results"][name][2.0]
+            member = dataclasses.replace(cfg, code=name)
+            hold(f"REG_ENS {label} {name}", st,
+                 replay(member, cfg.seed + m, 0, 2.0, st["tot"] // cfg.batch))
+            print(f"mesh REG_ENS {label} {name}: tot {st['tot']} wec "
+                  f"{st['wec']} == the replays | {card}", flush=True)
+
+    # (d) edge sharding: against BPDecoder's kernel on the same LLRs.
+    for j, (c, ch, p, cw, v, kw) in enumerate(edge):
+        o = res[8 + j][0]
+        if not np.array_equal(o["x_hat"], res[8 + j][1]["x_hat"]):
+            fail(f"mesh edge {c} {v}: the ranks' decisions differ")
+        llr = jobs.make_llr(c, ch, p, MESH_EDGE_B, 80 + j, "cuda", cw)
+        dec = BPDecoder(get_code(c).graph, v, device="cuda", **kw)
+        dec.decode(llr)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        xr, itr = dec.decode(llr)
+        stop.record()
+        torch.cuda.synchronize()
+        xr, itr = xr.cpu().numpy(), itr.cpu().numpy()
+        ok = ~(o["x_hat"] != xr).any(axis=1)
+        bad = int((~ok).sum())
+        pol = f" {kw['inf_policy']}" if v == "SPA" else ""
+        print(f"mesh edge-sharded {c} {v}{pol} {ch} {p}, B={MESH_EDGE_B}, "
+              f"{n} ranks: {bad} words differ from BPDecoder f32; decode "
+              f"{o['ms']:.3f} ms (plain PyTorch check pass, gloo sums) vs "
+              f"the kernel {start.elapsed_time(stop):.3f} ms | {card}",
+              flush=True)
+        if bad > 1 or (bad == 0 and not np.array_equal(o["iters"], itr)):
+            fail(f"mesh edge {c} {v}{pol}: {bad} words differ, or the "
+                 "iteration counts do")
+    p = code_1d.params[0]
+    if strip(res[14][0]["results"]) != strip(res[14][1]["results"]):
+        fail("mesh code 1-D: the ranks' results differ")
+    wer_close(f"code mesh 1x{n} margulis MSA {p} dB", res[14][0]["results"][p],
+              MonteCarloRunner(code_1d).run()[p])
+
+    # (e) ADMMA: data-parallel training.
+    e = res[15]
+    if strip(e[0]["results"]) != strip(e[1]["results"]):
+        fail("mesh admma: the ranks' results differ")
+    mlps = [o["mlp"] for o in e]
+    start = mlp_init(6, ADMMA_LAYERS, 0).state_dict()
+    for k in mlps[0]:
+        if not np.array_equal(mlps[0][k], mlps[1][k]):
+            fail(f"mesh admma: the ranks' MLPs differ in {k}")
+    if all(np.array_equal(mlps[0][k], start[k].numpy()) for k in mlps[0]):
+        fail("mesh admma: training did not move the MLP")
+    wer_close("admma train 2.5 dB", e[0]["results"][2.5],
+              MonteCarloRunner(admma_cfg).run()[2.5])
+    print(f"mesh admma train: MLPs equal on both ranks and moved; "
+          f"{e[0]['results'][2.5]['words_per_sec']:.1f} cw/s on {n} ranks | "
+          f"{card}", flush=True)
+
+    # (f) the luby CLI on two ranks against the ranks' own replays.
+    f, reps = res[16], res[17]
+    count(f, "lt_peel", "luby")
+    want = [v for j in range(len(reps[0])) for r in range(n)
+            for v in reps[r][j]]
+    if lt_files != [f"luby-{LT_K}-{LT_N}-0.03-{LT_DELTA}.json"] or \
+            lt_saved["arr"] != want:
+        fail("mesh luby: arr != the rank-ordered replays of each rank's "
+             "stream")
+    ours = np.array(lt_saved["arr"], float)
+    with open(os.path.join(ARTIFACTS, f"luby-{LT_K}-{LT_N}-0.03-"
+                           f"{LT_DELTA}.json")) as fp:
+        ref = np.array(json.load(fp)["arr"], float)
+    z_m = (ours.mean() - ref.mean()) / math.sqrt(
+        ref.var() / ref.size + ours.var() / ours.size)
+    z_s = (ours.std() - ref.std()) / math.sqrt(
+        kurtosis_var_of_std(ref) + kurtosis_var_of_std(ours))
+    wall = f[0]["seconds"]
+    busy = sum(o["busy_s"] for o in f)
+    print(f"timing mesh luby c=0.03, {LT_CLI_SIMS} sims, --batch {LT_BATCH}:"
+          f" one rank {lt_one['cli_s_per_sim']:.4f} s/sim (device idle "
+          f"{lt_one['cli_idle']:.4f}; phase 6), {n} ranks "
+          f"{wall / LT_CLI_SIMS:.4f} s/sim (device idle {1 - busy / wall:.4f}"
+          f"); mean {ours.mean():.1f} std {ours.std():.1f}: z {z_m:.3f} / "
+          f"{z_s:.3f} | {card}", flush=True)
+    if not (abs(z_m) < 4 and abs(z_s) < 4):
+        fail("mesh luby: mean or std more than 4 SE from the artifact")
+
+    # 2 x 2 batch x code mesh: four ranks.
+    outs4 = spawn(jobs.harness, 4, args=(code_2d, "plain", None, 2),
+                  device="cuda", backend="gloo")
+    p = code_2d.params[0]
+    if any(strip(o["results"]) != strip(outs4[0]["results"]) for o in outs4):
+        fail("mesh code 2x2: the ranks' results differ")
+    wer_close("code mesh 2x2 flagship MSA bsc", outs4[0]["results"][p],
+              MonteCarloRunner(code_2d).run()[p])
+
+    # (g) NCCL, one card per rank: (a) again, and the two tally designs.
+    if torch.cuda.device_count() >= n:
+        g = spawn("ldpc_decoders_tpu_torch.parallel.jobs:sequence", n,
+                  args=(tasks[:5],), device="cuda")
+        g = {i: [o[i] for o in g] for i in range(5)}
+        count(g[0], "msa_decode", "flagship nccl")
+        for idx, p in enumerate(flag.params):
+            st = g[0][0]["results"][p]
+            hold(f"flagship nccl {p} dB", st, replay(
+                flag, flag.seed, idx, p, st["tot"] // flag.batch))
+        rates = {t: [] for t in ("host", "device")}
+        for i, t in zip(range(1, 5), ("host", "device", "device", "host")):
+            count(g[i], "msa_decode", "flagship rate nccl")
+            rates[t].append(g[i][0]["results"][3.0]["words_per_sec"])
+        print(f"mesh flagship over NCCL, {n} cards: tallies == the replays; "
+              f"cw/s with the tally summed on the host {rates['host'][0]:.1f}"
+              f" / {rates['host'][1]:.1f}, on the card "
+              f"{rates['device'][0]:.1f} / {rates['device'][1]:.1f} | {card}",
+              flush=True)
+    else:
+        print(f"mesh NCCL: not run, {torch.cuda.device_count()} card(s) "
+              f"for {n} ranks | {card}", flush=True)
+    print(f"phase 8 (several ranks): {time.perf_counter() - t_phase:.1f} s, "
+          f"the {n}-rank spawn {spawn_s:.1f} s | {card}", flush=True)
+    return launches
 
 
 def plot_checks() -> None:
@@ -2007,6 +2343,10 @@ def main() -> None:
 
     # -- 7. ADMMA and the plots ----------------------------------------------
     launches["admm_decode"] += admma_phase(card)
+
+    # -- 8. several ranks ------------------------------------------------------
+    for kname, n in mesh_phase(card, timed["lt_peel"]["by_c"]["0.03"]).items():
+        launches[kname] += n
 
     csrc = "ldpc_decoders_tpu_torch/csrc/"
     pallas = "ldpc_decoders_tpu/ops/pallas_bp.py:"

@@ -21,6 +21,11 @@ Case registry: HMG, MAR, REG_BAD, REG_ENS, IREG_ENS. What runs:
 - HMG (ML, LP, SPA, MSA, ADMM on Hamming(7,4)) and MAR (ADMM and the five
   BP legs on margulis) run whole.
 
+``mesh`` (``--mesh N`` on the CLI, which spawns the ranks as ``main``
+does) goes to the plain, rotating and joint runners, as the JAX function
+passes it; the cap sweeps take none there either, so under a mesh every
+rank runs them whole and rank 0 writes their files.
+
 Precision is explicit. The JAX harness moves a float32 biAWGN BP run to
 its bf16 kernel on a chip and keeps the BSC in float32; the port's
 runners never change the message type behind the caller's back, so
@@ -35,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import sys
 from typing import Iterator, List
 
 from ldpc_decoders_tpu_torch.harness import (
@@ -45,6 +51,11 @@ from ldpc_decoders_tpu_torch.harness import (
 )
 from ldpc_decoders_tpu_torch.harness.ensemble_runner import (
     EnsembleMonteCarloRunner,
+)
+from ldpc_decoders_tpu_torch.parallel.mesh import (
+    BACKENDS,
+    batch_mesh,
+    run_ranks,
 )
 from ldpc_decoders_tpu_torch.utils.registry import Registry
 
@@ -180,14 +191,15 @@ def _plan(case_names, use_ensemble: bool,
     return plan
 
 
-def run_campaign(case_names, data_dir=None, overrides=None,
+def run_campaign(case_names, data_dir=None, mesh=None, overrides=None,
                  use_ensemble=True, joint_ensemble=False,
                  device="cuda") -> dict:
     """Run the named cases on ``device``; returns {(case, argv): results},
     an ensemble run's results as {member: {param: metrics}}. biAWGN legs
     run bf16 messages and BSC legs float32 (module docstring); cap sweeps
     and joint ensemble runs go at batch 2048 as the JAX package has them.
-    ``overrides`` (RunConfig fields) apply last."""
+    ``overrides`` (RunConfig fields) apply last; ``mesh`` shards the plain
+    and ensemble runs' batches."""
     results = {}
     for name, kind, cfg, extra in _plan(case_names, use_ensemble,
                                         joint_ensemble):
@@ -202,12 +214,13 @@ def run_campaign(case_names, data_dir=None, overrides=None,
                 cfg, extra).run()
         elif kind == "rotating":
             results[(name, f"rotating:{to_argv(cfg)}")] = \
-                run_rotating_members(cfg, extra)
+                run_rotating_members(cfg, extra, mesh=mesh)
         elif kind == "joint":
             results[(name, f"ensemble:{to_argv(cfg)}")] = \
-                EnsembleMonteCarloRunner(cfg, extra).run()
+                EnsembleMonteCarloRunner(cfg, extra, mesh=mesh).run()
         else:
-            results[(name, to_argv(cfg))] = MonteCarloRunner(cfg).run()
+            results[(name, to_argv(cfg))] = MonteCarloRunner(
+                cfg, mesh=mesh).run()
     return results
 
 
@@ -229,7 +242,23 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu (the "
                         "plain PyTorch versions)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard each run's batch over N ranks, one process "
+                        "(and one card) each (0 = one process)")
+    p.add_argument("--dist-backend", choices=BACKENDS, default=None,
+                   help="process-group backend of a mesh: nccl (one card "
+                        "per rank, the default on cuda) or gloo (the CPU's; "
+                        "on cuda it lets ranks share cards)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
+    if args.mesh < 0:
+        p.error("--mesh counts ranks (0 = one process)")
+    if not args.emit:
+        spawned, res = run_ranks("ldpc_decoders_tpu_torch.campaign:main",
+                                 argv, args.mesh, args.device,
+                                 args.dist_backend)
+        if spawned:
+            return res
     logging.basicConfig(format="%(name)s|%(message)s", level=logging.INFO)
 
     if args.emit:
@@ -244,6 +273,7 @@ def main(argv=None):
     if args.min_wec:
         overrides["min_wec"] = args.min_wec
     return run_campaign(args.case, data_dir=args.data_dir,
+                        mesh=batch_mesh(args.mesh) if args.mesh else None,
                         overrides=overrides,
                         use_ensemble=not args.no_ensemble,
                         joint_ensemble=args.joint_ensemble,

@@ -24,6 +24,15 @@ either package loads in the other.
 
 The loop stops when every word is done or at the cap, so it takes one
 Adam step per loop iteration, as the JAX package's ``while_loop`` does.
+
+Under a mesh (``set_mesh``, which the harness calls) training is data
+parallel over its ``batch`` axis, as the JAX package's ``pmean`` / ``pmin``
+make it: each rank's loss is the mean over its own rows, the gradients are
+summed over the axis between ``backward()`` and ``step()`` and divided by
+the ranks, and the loop stops when every word of every rank is done, so
+every rank takes the same Adam steps and the replicated MLPs stay equal bit
+for bit. Only rank 0 writes a checkpoint.
+
 The MLP runs in true float32: nothing in the package enables TF32.
 
 ADMMA has no kernel of its own, on the TPU either: the JAX package runs it
@@ -48,6 +57,7 @@ from torch import nn
 from ldpc_decoders_tpu_torch.ops.admm_kernel import admm_decode_plain
 from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, bp_tables
 from ldpc_decoders_tpu_torch.ops.projection import project_parity_polytope
+from ldpc_decoders_tpu_torch.parallel.mesh import is_coordinator
 from ldpc_decoders_tpu_torch.utils.math import pseudo_to_cw_tensor
 
 
@@ -145,11 +155,20 @@ def make_adam(mlp: MLP, learning_rate: float) -> torch.optim.Adam:
 
 
 def adam_step(mlp: MLP, opt: torch.optim.Adam, rows: torch.Tensor,
-              target: torch.Tensor) -> torch.Tensor:
-    """One step on mean((mlp(rows) - target)^2); returns the loss."""
+              target: torch.Tensor, mesh=None) -> torch.Tensor:
+    """One step on mean((mlp(rows) - target)^2); returns the loss. With a
+    ``mesh`` the gradients are averaged over its ``batch`` axis first (one
+    sum of all of them, on the main group)."""
     loss = torch.mean((mlp(rows) - target) ** 2)
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    n = mesh.width("batch") if mesh is not None else 1
+    if n > 1:
+        grads = [p.grad for p in mlp.parameters()]
+        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                               "batch") / n
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
     opt.step()
     return loss.detach()
 
@@ -200,10 +219,17 @@ class ADMMADecoder:
                     "train=True (or the offline trainer) first")
             self.mlp = load_params(path, device=self.graph.device)
         self.opt = make_adam(self.mlp, learning_rate)
+        self.mesh = None
+
+    def set_mesh(self, mesh) -> None:
+        """Train data-parallel over ``mesh``'s batch axis from now on."""
+        self.mesh = mesh
 
     def save(self) -> str:
+        """Write the checkpoint (on rank 0 only) and return its path."""
         path = ckpt_path(self.cache_dir, self.dim, self.layers)
-        save_params(path, self.mlp)
+        if is_coordinator():
+            save_params(path, self.mlp)
         return path
 
     def _exact(self, v: torch.Tensor) -> torch.Tensor:
@@ -214,18 +240,23 @@ class ADMMADecoder:
         if self.train:
             target = self._exact(v)
             adam_step(self.mlp, self.opt, v.reshape(-1, self.dim),
-                      target.reshape(-1, self.dim))
+                      target.reshape(-1, self.dim), self.mesh)
             return target
         if 0 < self.switch < it:
             return self._exact(v)
         with torch.no_grad():
             return self.mlp(v.reshape(-1, self.dim)).reshape(v.shape)
 
+    def _all_done(self, done: torch.Tensor) -> bool:
+        if self.train and self.mesh is not None:
+            return self.mesh.all_true(done.all(), "batch")
+        return bool(done.all())
+
     def decode(self, llr: torch.Tensor) -> tuple:
         x_hat, iters, x = admm_decode_plain(
             llr.to(torch.float32).contiguous(), self.tables, mu=self.mu,
             eps=self.eps, max_iter=self.iter_cap, n_edge=self.graph.n_edge,
-            z_update=self._z_update)
+            z_update=self._z_update, all_done=self._all_done)
         if self.allow_pseudo:
             return pseudo_to_cw_tensor(x, True), iters
         return x_hat, iters

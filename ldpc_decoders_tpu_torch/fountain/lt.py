@@ -37,6 +37,11 @@ sorted-segment tables (``indptr_sym``, ``perm_var``, ``indptr_var``) are
 built on the device (``ops/lt_kernel.py:edge_layout``).
 
 CLI: ``python -m ldpc_decoders_tpu_torch.fountain.lt k n c delta count``.
+With ``--mesh N`` each of N ranks (one process each, spawned by the CLI
+where no process group exists) samples and peels ``batch / N`` sims of
+every batch with its own rng stream and sampler thread, and rank 0 gathers
+the results in rank order and writes the file: the host sampler, which
+sets the pace, runs in N processes.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import numpy as np
 import torch
 
 from ldpc_decoders_tpu_torch.ops import lt_kernel
+from ldpc_decoders_tpu_torch.parallel.mesh import local_batch
 
 
 # ----------------------------------------------------------------------
@@ -289,34 +295,48 @@ class LTSimulator:
         return res.cpu().numpy(), est.cpu().numpy(), resolved.cpu().numpy()
 
 
+def batch_sizes(count: int, batch: int, mesh=None) -> list:
+    """The global sizes of the batches of a run of ``count`` sims; each
+    must divide over the mesh's ranks (``local_batch`` raises)."""
+    if count <= 0:
+        return []
+    if batch < 1:
+        raise ValueError(f"batch must be positive, got {batch}")
+    sizes = [min(batch, count - i) for i in range(0, count, batch)]
+    for b in sizes:
+        local_batch(b, mesh)
+    return sizes
+
+
 def stream_batches(sim: LTSimulator, rng: np.random.Generator, count: int,
-                   batch: int):
+                   batch: int, mesh=None):
     """Decode ``count`` sims in batches of ``batch``, yielding each batch's
     num-symbols results (numpy). Host graph sampling overlaps the peel of
     the previous batch: one sampler thread stays exactly a batch ahead, and
     the rng is only ever touched from that thread, one job at a time, so
     the stream is deterministic. ``count <= 0`` yields nothing and samples
-    nothing."""
-    if count <= 0:
+    nothing.
+
+    With a ``mesh`` each rank samples and peels its share of every batch
+    from its own ``rng`` and thread, and every rank yields the whole
+    batch's results, gathered in rank order. A batch that does not divide
+    over the ranks raises before anything is sampled."""
+    local = [local_batch(b, mesh) for b in batch_sizes(count, batch, mesh)]
+    if not local:
         return
-    if batch < 1:
-        raise ValueError(f"batch must be positive, got {batch}")
     from concurrent.futures import ThreadPoolExecutor
 
     ex = ThreadPoolExecutor(1)
-    fut = ex.submit(sim.sample_batch, rng, min(batch, count))
-    submitted = done = 0
+    fut = ex.submit(sim.sample_batch, rng, local[0])
     try:
-        while done < count:
+        for j in range(len(local)):
             tables = fut.result()
-            b = int(tables["msg"].shape[0])
-            submitted += b
-            nxt = min(batch, count - submitted)
-            if nxt > 0:
-                fut = ex.submit(sim.sample_batch, rng, nxt)
-            res, _, _ = sim.simulate(tables)
-            done += b
-            yield res.cpu().numpy()
+            if j + 1 < len(local):
+                fut = ex.submit(sim.sample_batch, rng, local[j + 1])
+            res = sim.simulate(tables)[0].cpu()
+            if mesh is not None:
+                res = mesh.host_gather(res, "batch")
+            yield res.numpy()
     finally:
         ex.shutdown(wait=False, cancel_futures=True)
 
@@ -328,8 +348,18 @@ def stream_batches(sim: LTSimulator, rng: np.random.Generator, count: int,
 def main(argv=None):
     import argparse
     import logging
+    import os
+    import sys
+
+    import torch.distributed as dist
 
     from ldpc_decoders_tpu_torch.harness.saver import Saver
+    from ldpc_decoders_tpu_torch.parallel.mesh import (
+        BACKENDS,
+        batch_mesh,
+        is_coordinator,
+        run_ranks,
+    )
     from ldpc_decoders_tpu_torch.utils.file import load_json, resolve_data_dir_os
 
     p = argparse.ArgumentParser(description="LT fountain-code simulation")
@@ -341,14 +371,19 @@ def main(argv=None):
                    help="total sims in the result file (resumes an existing "
                         "one)")
     p.add_argument("--batch", type=int, default=64,
-                   help="sims per peel launch")
+                   help="sims per peel launch, over all ranks")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "sparse", "dense"],
                    help="auto = sparse: the CUDA kernel on a card, the plain "
                         "sorted-edge peel on the CPU; dense = batched "
                         "products over a 0/1 generator per sim")
     p.add_argument("--mesh", type=int, default=0,
-                   help="not ported (ROADMAP A.15)")
+                   help="sample and peel each batch over N ranks, one "
+                        "process (and one card) each (0 = one process)")
+    p.add_argument("--dist-backend", choices=BACKENDS, default=None,
+                   help="process-group backend of a mesh: nccl (one card "
+                        "per rank, the default on cuda) or gloo (the CPU's; "
+                        "on cuda it lets ranks share cards)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_dir",
                    default=resolve_data_dir_os("decoders") + "/data")
@@ -356,32 +391,56 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "engines)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
-    if args.mesh:
-        p.error("--mesh is not ported yet (ROADMAP A.15 (multi-device))")
+    if args.mesh < 0:
+        p.error("--mesh counts ranks (0 = one process)")
 
-    logging.basicConfig(format="%(name)s|%(message)s", level=logging.INFO)
     id_keys = ["k", "n", "c", "delta"]
     id_val = [str(vars(args)[key]) for key in id_keys]
-    saver = Saver(args.data_dir, list(zip(["type"] + id_keys,
-                                          ["luby"] + id_val)))
+    ids = list(zip(["type"] + id_keys, ["luby"] + id_val))
+    path = os.path.join(args.data_dir, "-".join(["luby"] + id_val) + ".json")
+
+    def committed() -> list:
+        existing = load_json(path)
+        return ([int(v) for v in existing["arr"]]
+                if existing and "arr" in existing else [])
+
+    ranks = max(args.mesh, 1)
+    if not dist.is_initialized():
+        try:
+            batch_sizes(args.count - len(committed()), args.batch, ranks)
+        except ValueError as e:
+            p.error(f"--mesh {ranks}: {e}")
+    if run_ranks("ldpc_decoders_tpu_torch.fountain.lt:main", argv, ranks,
+                 args.device, args.dist_backend)[0]:
+        return
+
+    mesh = batch_mesh(args.mesh) if args.mesh else None
+    logging.basicConfig(format="%(name)s|%(message)s", level=logging.INFO)
+    saver = Saver(args.data_dir, ids) if is_coordinator() else None
     log = logging.getLogger(".".join(id_val))
 
     sim = LTSimulator(args.k, args.n, args.c, args.delta,
                       engine=args.engine, device=args.device)
     # Resume: ``count`` is the total; an existing file's sims are kept and
-    # extended, from a stream seeded by (seed, #existing).
-    existing = load_json(saver.file_path)
-    arr = [int(v) for v in existing["arr"]] \
-        if existing and "arr" in existing else []
+    # extended, from streams seeded by (seed, #existing): rank 0 reads the
+    # file, and rank r of N > 1 draws from (seed, #existing, r, N).
+    arr = committed() if saver else []
+    n_done = mesh.host_broadcast(len(arr)) if mesh is not None else len(arr)
     if arr:
         log.info("resuming from %d committed sims", len(arr))
-    rng = np.random.default_rng([args.seed, len(arr)])
-    for res in stream_batches(sim, rng, args.count - len(arr), args.batch):
-        arr.extend(int(r) for r in res)
-        log.info("sims=%d mean=%.1f std=%.1f", len(arr),
-                 float(np.mean(arr)), float(np.std(arr)))
-        saver.add_all({"arr": arr})
+    key = [args.seed, n_done]
+    if ranks > 1:
+        key += [mesh.index("batch"), ranks]
+    rng = np.random.default_rng(key)
+    for res in stream_batches(sim, rng, args.count - n_done, args.batch,
+                              mesh):
+        if saver:
+            arr.extend(int(r) for r in res)
+            log.info("sims=%d mean=%.1f std=%.1f", len(arr),
+                     float(np.mean(arr)), float(np.std(arr)))
+            saver.add_all({"arr": arr})
     log.info("Finished all!")
 
 

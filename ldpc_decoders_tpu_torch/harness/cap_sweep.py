@@ -20,6 +20,9 @@ max_iter label semantics (calibrated on the committed goldens):
 
 One route per device: the kernel on CUDA, the plain version on the CPU. A
 kernel that fails raises; there is no probe and no fallback.
+
+The sweep takes no mesh, as in the JAX package: in a run of several ranks
+each rank runs it whole on its own card, and only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ldpc_decoders_tpu_torch.decoders.bec_spa import BECSPADecoder
 from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
 from ldpc_decoders_tpu_torch.harness.runner import MonteCarloRunner, RunConfig
 from ldpc_decoders_tpu_torch.harness.saver import Saver
+from ldpc_decoders_tpu_torch.parallel.mesh import is_coordinator
 
 
 class CapSweepRunner(MonteCarloRunner):
@@ -81,7 +85,7 @@ class CapSweepRunner(MonteCarloRunner):
         self.log = logging.getLogger(".".join(
             [cfg.channel, cfg.code, cfg.decoder, "caps"]))
         self.savers = []
-        if cfg.data_dir:
+        if cfg.data_dir and is_coordinator():
             for lbl_idx in self.order:
                 ids = [("channel", cfg.channel), ("code", cfg.code),
                        ("decoder", cfg.decoder), ("codeword", cfg.codeword),

@@ -21,6 +21,12 @@ the slowest running member.
 Each member writes through its own Saver, with the file name a per-member
 run gives it. ``words_per_sec`` is the words of all members decoded per
 second.
+
+With a ``mesh`` (a ``batch`` axis only) each rank decodes ``batch / N``
+words of each member a chunk, member ``g`` from the generator rank r's
+rotating run uses, and the ``[2, A]`` tally is summed over the ranks where
+``MonteCarloRunner`` sums its own (``Mesh.device_tally``). Only rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ldpc_decoders_tpu_torch.harness.runner import (
     start_host_copy,
 )
 from ldpc_decoders_tpu_torch.harness.saver import Saver
+from ldpc_decoders_tpu_torch.parallel.mesh import is_coordinator, local_batch
 
 
 class EnsembleMonteCarloRunner:
@@ -57,16 +64,18 @@ class EnsembleMonteCarloRunner:
 
     def __init__(self, cfg: RunConfig, member_names: Sequence[str],
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the joint ensemble runner runs on one device; multi-device "
-                "fan-out is not ported yet (ROADMAP A.15)")
+        if mesh is not None and "code" in mesh.axis_names:
+            raise ValueError("the joint ensemble runner shards the batch "
+                             "only; a mesh with a code axis needs the "
+                             "edge-sharded decoder (MonteCarloRunner)")
         if cfg.decoder not in ("SPA", "MSA"):
             raise ValueError("ensemble runner supports SPA/MSA only")
         if cfg.codeword == -1:
             raise ValueError("ensemble members are parity-only codes; "
                              "random-codeword mode needs a generator")
         self.cfg = cfg
+        self.mesh = mesh
+        self.local_batch = local_batch(cfg.batch, mesh)
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
@@ -90,7 +99,7 @@ class EnsembleMonteCarloRunner:
         self.log = logging.getLogger(
             ".".join([cfg.channel, cfg.code, cfg.decoder, "ensemble"]))
         self.savers = []
-        if cfg.data_dir:
+        if cfg.data_dir and is_coordinator():
             for name in self.member_names:
                 ids = [("channel", cfg.channel), ("code", name),
                        ("decoder", cfg.decoder), ("codeword", cfg.codeword),
@@ -102,7 +111,7 @@ class EnsembleMonteCarloRunner:
         """B words for each member of ``active`` -> the packed [2, A]
         tally on the device."""
         cfg = self.cfg
-        x = torch.full((cfg.batch, self.n_var), cfg.codeword,
+        x = torch.full((self.local_batch, self.n_var), cfg.codeword,
                        dtype=torch.int32, device=self.device)
         soft = []
         for g in active:
@@ -159,6 +168,8 @@ class EnsembleMonteCarloRunner:
             host, event, active = pending.popleft()
             if event is not None:
                 event.synchronize()
+            if self.mesh is not None and not self.mesh.device_tally:
+                self.mesh.host_sum(host, "batch")
             arr = host.numpy()
             wec[active] += arr[0]
             bec[active] += arr[1]
@@ -173,8 +184,10 @@ class EnsembleMonteCarloRunner:
             if not active:
                 break
             chunk_i += 1
-            pending.append((*start_host_copy(
-                self._chunk(param, gens, active)), active))
+            tally = self._chunk(param, gens, active)
+            if self.mesh is not None and self.mesh.device_tally:
+                self.mesh.all_reduce(tally, "batch")
+            pending.append((*start_host_copy(tally), active))
             while len(pending) >= effective_depth(chunk_i):
                 consume()
             if time.time() - t_log > cfg.log_freq:
@@ -196,7 +209,9 @@ class EnsembleMonteCarloRunner:
         for idx, param in enumerate(self.cfg.params):
             self.log.info("Starting parameter: %f (G=%d members)", param,
                           self.G)
-            gens = [point_generator(self.device, self.cfg.seed + g, idx)
+            rank = ((self.mesh.index("batch"), self.mesh.width("batch"))
+                    if self.mesh is not None else ())
+            gens = [point_generator(self.device, self.cfg.seed + g, idx, *rank)
                     for g in range(self.G)]
             for name, st in zip(self.member_names,
                                 self.run_param(param, gens)):

@@ -17,6 +17,19 @@ consumed, so the min-wec estimator stays unbiased.
 Each sweep point draws from its own ``torch.Generator`` seeded from
 (seed, point index).
 
+Several ranks (``mesh``, ``parallel/mesh.py``: one process per rank): each
+rank of the mesh's ``batch`` axis decodes ``batch / N`` words a chunk from
+a generator of its own, seeded from (seed, point index, rank, N); the
+packed tally is summed over the batch axis (on the card at dispatch over
+NCCL, on the host at consume over gloo: ``Mesh.device_tally``), so ``tot``
+counts the global batch and every rank takes the same stop and pipeline
+decisions from the same sums. Only rank 0 writes the Saver file. A mesh
+with a ``code`` axis decodes through ``EdgeShardedBPDecoder`` (parity
+checks sharded over that axis); the ranks of one code group draw the same
+words, keyed on their batch coordinate alone, so a 1-D code mesh draws one
+rank's words and each word counts once. A stateful decoder (ADMMA) trains
+data-parallel over the batch axis.
+
 A stateful decoder (ADMMA, which trains its MLP inside ``decode`` in train
 mode) is one object for the whole run: its chunks decode one after the
 other in dispatch order (``decode`` runs eagerly on the host's one
@@ -40,8 +53,13 @@ import numpy as np
 import torch
 
 from ldpc_decoders_tpu_torch.channels import CHANNELS
+from ldpc_decoders_tpu_torch.channels.bsc import _LLRWrapped
 from ldpc_decoders_tpu_torch.codes import get_code
 from ldpc_decoders_tpu_torch.harness.saver import Saver
+from ldpc_decoders_tpu_torch.parallel.bp_edge_sharded import (
+    EdgeShardedBPDecoder,
+)
+from ldpc_decoders_tpu_torch.parallel.mesh import is_coordinator, local_batch
 from ldpc_decoders_tpu_torch.utils.profiler import LoopProfiler
 
 ITER_HIST_LEN = 2000    # iteration counts above it clip to the last bin
@@ -76,10 +94,14 @@ def pipeline_depth(tick: int, depth: int, wec: np.ndarray,
     return eff
 
 
-def point_generator(device, seed: int, idx: int) -> torch.Generator:
-    """The generator of sweep point ``idx`` of a run seeded ``seed``."""
+def point_generator(device, seed: int, idx: int, rank: int = 0,
+                    ranks: int = 1) -> torch.Generator:
+    """The generator of sweep point ``idx`` of a run seeded ``seed``, for
+    rank ``rank`` of ``ranks`` along the batch axis; one rank draws the
+    stream of a run without a mesh."""
     gen = torch.Generator(device=device)
-    state = np.random.SeedSequence([seed, idx])
+    key = [seed, idx] if ranks == 1 else [seed, idx, rank, ranks]
+    state = np.random.SeedSequence(key)
     gen.manual_seed(int(state.generate_state(1, np.uint64)[0]))
     return gen
 
@@ -134,8 +156,11 @@ class RunConfig:
 class MonteCarloRunner:
     """Runs one (channel, code, decoder) sweep to the target error count."""
 
-    def __init__(self, cfg: RunConfig):
+    def __init__(self, cfg: RunConfig, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.code_sharded = mesh is not None and "code" in mesh.axis_names
+        self.local_batch = local_batch(cfg.batch, mesh)
         if cfg.channel not in CHANNELS:
             raise ValueError(f"unknown channel {cfg.channel!r}")
         self.mod = CHANNELS[cfg.channel]
@@ -145,10 +170,16 @@ class MonteCarloRunner:
                                "is available (use --device cpu for the "
                                "plain PyTorch route)")
         self.code = get_code(cfg.code)
-        self.dec = self._make_decoder()
+        self.dec = (self._build_edge_sharded() if self.code_sharded
+                    else self._make_decoder())
         inner = getattr(self.dec, "dec", None)
         self.host_only = getattr(inner, "host_only", False)
         self.track_hist = getattr(inner, "track_iter_hist", False)
+        if mesh is not None and getattr(inner, "stateful", False):
+            inner.set_mesh(mesh)
+        # Where the chunk tally is summed over the batch axis.
+        self._device_sum = (mesh is not None and mesh.device_tally
+                            and not self.host_only)
         if cfg.codeword == -1:
             if self.code.cb is None:
                 raise ValueError("codeword -1 needs a code with a generator "
@@ -164,6 +195,23 @@ class MonteCarloRunner:
                 f"decoder {cfg.decoder!r} is not ported yet (ROADMAP A)")
         return self.mod.DECODERS[cfg.decoder](self.code,
                                               **cfg.decoder_kwargs())
+
+    def _build_edge_sharded(self):
+        """The decoder of a mesh with a ``code`` axis: parity checks shard
+        over it, behind the channel's LLR map."""
+        cfg = self.cfg
+        if cfg.decoder not in ("SPA", "MSA"):
+            raise ValueError("code-axis sharding supports the LLR-domain BP "
+                             "decoders (SPA/MSA) only")
+        if cfg.channel == "bec":
+            raise ValueError("code-axis sharding is LLR-domain; the ternary "
+                             "BEC SPA does not shard")
+        inner = EdgeShardedBPDecoder(
+            self.code.parity_mtx, self.mesh, cfg.decoder,
+            max_iter=cfg.max_iter, iter_cap=cfg.iter_cap,
+            inf_policy=cfg.inf_policy, check_init=cfg.channel != "biawgn",
+            device=self.device)
+        return _LLRWrapped(inner, self.mod.llr)
 
     @property
     def rotatable(self) -> bool:
@@ -201,8 +249,9 @@ class MonteCarloRunner:
         self.id_keys = id_keys
         self.id_vals = [cfg_vars[k] for k in id_keys]
         self.log = logging.getLogger(".".join(str(v) for v in self.id_vals))
+        # Every rank holds the same summed tallies: rank 0 writes them.
         self.saver = (Saver(cfg.data_dir, list(zip(id_keys, self.id_vals)))
-                      if cfg.data_dir else None)
+                      if cfg.data_dir and is_coordinator() else None)
 
     # ------------------------------------------------------------------
     def _sample_x(self, gen: torch.Generator, batch: int) -> torch.Tensor:
@@ -216,7 +265,7 @@ class MonteCarloRunner:
     def _chunk(self, param, gen: torch.Generator) -> torch.Tensor:
         """One super-batch -> the packed ``[wec, bec]`` tally (plus the
         iteration histogram for decoders that track it), on device."""
-        x = self._sample_x(gen, self.cfg.batch)
+        x = self._sample_x(gen, self.local_batch)
         y = self.mod.send(x, param, gen)
         x_hat, aux = self.dec.decode(y, param, gen)
         errs = (x_hat != x).sum(dim=-1)
@@ -235,7 +284,7 @@ class MonteCarloRunner:
         """Host decoders (LP): sample on the device, decode on the host.
         Returns the same packed ``[wec, bec]`` tally as the device chunks,
         so ``consume`` does not care about the route."""
-        x = self._sample_x(gen, self.cfg.batch)
+        x = self._sample_x(gen, self.local_batch)
         y = self.mod.send(x, param, gen)
         x_hat, _ = self.dec.decode(y, param, gen)
         x = x.cpu().numpy()
@@ -246,10 +295,15 @@ class MonteCarloRunner:
         """Enqueue a chunk; returns (host tally, CUDA event or None)."""
         if self.host_only:
             return self._host_chunk(param, gen), None
-        return start_host_copy(self._chunk(param, gen))
+        tally = self._chunk(param, gen)
+        if self._device_sum:
+            self.mesh.all_reduce(tally, "batch")
+        return start_host_copy(tally)
 
     def _generator(self, idx: int) -> torch.Generator:
-        return point_generator(self.device, self.cfg.seed, idx)
+        rank = ((self.mesh.index("batch"), self.mesh.width("batch"))
+                if self.mesh is not None else ())
+        return point_generator(self.device, self.cfg.seed, idx, *rank)
 
     # ------------------------------------------------------------------
     def run_param(self, param: float, gen: torch.Generator) -> OrderedDict:
@@ -294,6 +348,8 @@ class MonteCarloRunner:
             host, event = pending.popleft()
             if event is not None:
                 event.synchronize()
+            if self.mesh is not None and not self._device_sum:
+                self.mesh.host_sum(host, "batch")
             arr = host.numpy()
             consumed += 1
             wec += int(arr[0])
@@ -348,13 +404,14 @@ class MonteCarloRunner:
         return results
 
 
-def run_rotating_members(cfg: RunConfig, member_names) -> dict:
+def run_rotating_members(cfg: RunConfig, member_names, mesh=None) -> dict:
     """Monte-Carlo a code ensemble one member at a time through one runner
     (:meth:`MonteCarloRunner.rotate_member`), member ``idx`` seeded
     ``cfg.seed + idx`` so the members' channel noise is independent.
     Per-member ``min_wec`` stop and per-member Saver files, as independent
     per-member runs have them. Returns ``{member: {param: metrics}}``."""
-    runner = MonteCarloRunner(dataclasses.replace(cfg, code=member_names[0]))
+    runner = MonteCarloRunner(dataclasses.replace(cfg, code=member_names[0]),
+                              mesh=mesh)
     results = {}
     for idx, name in enumerate(member_names):
         runner.rotate_member(name, seed=cfg.seed + idx)

@@ -2,11 +2,20 @@
 
 The JAX package's argv contract, ADMMA's ``--layers``, ``--train``,
 ``--apprx`` and ``--cache_dir`` included, plus ``--device`` (default
-``cuda``). ``--mesh``, ``--mesh-code`` and ``--kernel`` are accepted; set
-to anything but their default they stop with an error that names the
-ROADMAP item still to port. ``--plots_dir`` is accepted and unused, as in
-the JAX CLI (the plots are ``viz.graph`` and ``viz.cases``). ``--bf16``
-selects the bf16-message kernel; without it the f32 kernel runs (nothing
+``cuda``). ``--kernel`` is accepted; set to anything but its default it
+stops with an error that names its ROADMAP item.
+
+``--mesh N`` shards each chunk's batch over N ranks, ``--mesh-code N``
+shards the parity checks over N ranks (``EdgeShardedBPDecoder``, SPA and
+MSA on the BSC and biAWGN), and both together make an ``[M, N]`` batch x
+code mesh. Without a process group the CLI spawns the ranks on this host,
+one process each (``parallel.mesh.run_ranks``); under ``torchrun`` (or
+after ``initialize_distributed``) the world's ranks are the mesh. On cards
+each rank takes its own card over NCCL; ``--dist-backend gloo`` lets ranks
+share cards.
+
+``--plots_dir`` is accepted and unused, as in the JAX CLI (the plots are
+``viz.graph`` and ``viz.cases``). ``--bf16`` selects the bf16-message kernel; without it the f32 kernel runs (nothing
 is downgraded silently, unlike the JAX harness, which moves f32 biAWGN BP
 to its bf16 kernel).
 ``--presort`` is accepted for argv compatibility and has no effect: it
@@ -20,16 +29,22 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 
 from ldpc_decoders_tpu_torch.channels import CHANNELS, DECODER_NAMES
 from ldpc_decoders_tpu_torch.codes import get_code_names
 from ldpc_decoders_tpu_torch.harness import MonteCarloRunner, RunConfig
+from ldpc_decoders_tpu_torch.parallel.mesh import (
+    BACKENDS,
+    batch_mesh,
+    code_mesh,
+    is_coordinator,
+    run_ranks,
+)
 from ldpc_decoders_tpu_torch.utils.file import make_dir_if_not_exists, resolve_data_dir_os
 
 # Flags of the JAX CLI whose features are not ported -> ROADMAP item.
 _NOT_PORTED = {
-    "--mesh": "A.15 (multi-device)",
-    "--mesh-code": "A.15 (edge-sharded BP)",
     "--kernel": "A.4 (the port has one route per device)",
 }
 
@@ -86,10 +101,17 @@ def setup_parser() -> argparse.ArgumentParser:
                         help="codewords per chunk")
     parser.add_argument("--seed", type=int, default=0, help="PRNG seed")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="shard the batch over N devices (not ported)")
+                        help="shard the batch over N ranks, one process "
+                             "(and one card) each (0 = one process)")
     parser.add_argument("--mesh-code", type=int, default=0,
-                        help="shard parity checks over N devices (not "
-                             "ported)")
+                        help="shard parity checks over N ranks "
+                             "(EdgeShardedBPDecoder: SPA/MSA on bsc and "
+                             "biawgn); with --mesh M an M x N batch x code "
+                             "mesh")
+    parser.add_argument("--dist-backend", choices=BACKENDS, default=None,
+                        help="process-group backend of a mesh: nccl (one "
+                             "card per rank, the default on cuda) or gloo "
+                             "(the CPU's; on cuda it lets ranks share cards)")
     parser.add_argument("--max-words", type=int, default=None,
                         help="safety cap on words per sweep point")
     parser.add_argument("--bf16", action="store_true",
@@ -128,11 +150,32 @@ def parse_args(argv=None) -> argparse.Namespace:
         dest = flag[2:].replace("-", "_")
         if getattr(args, dest) != parser.get_default(dest):
             parser.error(f"{flag} is not ported yet (ROADMAP {item})")
+    if args.mesh < 0 or args.mesh_code < 0:
+        parser.error("--mesh and --mesh-code count ranks (0 = unsharded)")
+    if args.mesh_code and (args.decoder not in ("SPA", "MSA")
+                           or args.channel == "bec"):
+        parser.error("--mesh-code shards the LLR-domain BP decoders (SPA, "
+                     "MSA on bsc and biawgn) only")
+    if args.mesh and args.batch % args.mesh:
+        parser.error(f"--batch {args.batch} does not divide over --mesh "
+                     f"{args.mesh} ranks")
+    if args.dist_backend == "nccl" and args.device == "cpu":
+        parser.error("--dist-backend nccl needs --device cuda")
     return args
 
 
+def mesh_ranks(args: argparse.Namespace) -> int:
+    """The ranks a parsed command line asks for."""
+    return max(args.mesh, 1) * max(args.mesh_code, 1)
+
+
 def main(argv=None) -> dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    spawned, res = run_ranks("ldpc_decoders_tpu_torch.main:main", argv,
+                             mesh_ranks(args), args.device, args.dist_backend)
+    if spawned:
+        return res          # rank 0's results are the run's
     level = logging.DEBUG if args.debug else logging.INFO
     if args.console:
         logging.basicConfig(format="%(name)s|%(message)s", level=level)
@@ -157,8 +200,14 @@ def main(argv=None) -> dict:
         inf_policy=args.inf_policy,
         pipeline=args.pipeline, adaptive_pipeline=not args.fixed_pipeline,
         device=args.device)
-    print(vars(args))
-    return MonteCarloRunner(cfg).run()
+    mesh = None
+    if args.mesh_code:
+        mesh = code_mesh(args.mesh_code, args.mesh)
+    elif args.mesh:
+        mesh = batch_mesh(args.mesh)
+    if is_coordinator():
+        print(vars(args))
+    return MonteCarloRunner(cfg, mesh=mesh).run()
 
 
 if __name__ == "__main__":

@@ -152,7 +152,8 @@ def admm_geometry(C: int, V: int, Dc: int) -> Geometry:
 
 def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
                       eps: float, max_iter: int, n_edge: int,
-                      z_update: Optional[Callable] = None) -> tuple:
+                      z_update: Optional[Callable] = None,
+                      all_done: Optional[Callable] = None) -> tuple:
     """The plain PyTorch version: llr [B, V] f32 -> (x_hat [B, V] int32,
     iters [B] int32, x [B, V] f32, the fractional solution). Batched over
     [B, C, Dc] tensors, words frozen with ``torch.where``; the host loop
@@ -163,7 +164,10 @@ def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
     v = x_e + lam/mu [B, C, Dc] onto the parity polytope, for every word,
     frozen ones included; ``it`` counts the loop's iterations from 0.
     ADMMA (``decoders/admma.py``) supplies a learned projection there.
-    Without it the loop is the kernel's arithmetic, bit for bit."""
+    Without it the loop is the kernel's arithmetic, bit for bit.
+    ``all_done(done)`` is the loop's stop test (default: every word of
+    ``done`` [B] is done); data-parallel training makes it global, so
+    every rank runs as many z-updates."""
     f32 = torch.float32
     dev = llr.device
     B, V = llr.shape
@@ -180,7 +184,10 @@ def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     updates = torch.zeros(B, dtype=torch.int32, device=dev)
     it = 0
-    while it < max_iter and not bool(done.all()):
+    if all_done is None:
+        def all_done(d):
+            return bool(d.all())
+    while it < max_iter and not all_done(done):
         lam_mu = lam * inv_mu
         u = (z - lam_mu).reshape(B, C * Dc)
         acc = torch.zeros((B, V), dtype=f32, device=dev)

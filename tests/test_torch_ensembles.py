@@ -374,8 +374,9 @@ def test_joint_runner_files_and_rotating_route(members, tmp_path, channel,
 
 def test_joint_runner_refusals(members):
     cfg = RunConfig("bsc", "ens48", "MSA", params=[0.05], device="cpu")
-    with pytest.raises(NotImplementedError, match="A.15"):
-        EnsembleMonteCarloRunner(cfg, members, mesh=object())
+    from ldpc_decoders_tpu_torch.parallel import code_mesh
+    with pytest.raises(ValueError, match="shards the batch only"):
+        EnsembleMonteCarloRunner(cfg, members, mesh=code_mesh(1))
     with pytest.raises(ValueError, match="SPA/MSA"):
         EnsembleMonteCarloRunner(dataclasses.replace(cfg, decoder="ADMM"),
                                  members)

@@ -81,21 +81,39 @@ def test_cli_cpu_run_matches_artifact(tmp_path):
     assert abs(z) <= 4.0, (w_o, t_o, w_r, t_r, z)
 
 
+# --kernel is not ported; --mesh and --mesh-code are, and refuse what they
+# cannot run: a non-BP or erasure decoder over a code mesh, a batch that does
+# not divide, a negative count, NCCL without cards.
+_MESH_REFUSALS = {
+    "ADMMA --mesh-code": "shards the LLR-domain BP decoders",
+    "--mesh 3": "does not divide",
+    "--mesh-code -2": "count ranks",
+    "--dist-backend nccl": "needs --device cuda",
+    "ldpc SPA --mesh-code": "shards the LLR-domain BP decoders",
+}
+
+
 @pytest.mark.parametrize("argv", [
-    ["bec", "1200_3_6_ldpc", "ADMMA", "--mesh", "4"],
-    ["bsc", "1200_3_6_ldpc", "ADMMA", "--train", "--mesh", "2"],
+    ["bec", "1200_3_6_ldpc", "ADMMA", "--mesh-code", "4"],
+    ["bsc", "1200_3_6_ldpc", "ADMMA", "--train", "--mesh", "3"],
     ["biawgn", "1200_3_6_ldpc", "ADMMA", "--kernel", "pallas"],
-    ["biawgn", "1200_3_6_ldpc", "MSA", "--layers", "50", "--mesh-code", "2"],
-    ["biawgn", "1200_3_6_ldpc", "MSA", "--mesh", "2"],
+    ["biawgn", "1200_3_6_ldpc", "MSA", "--layers", "50", "--mesh-code", "-2"],
+    ["biawgn", "1200_3_6_ldpc", "MSA", "--mesh", "2", "--dist-backend",
+     "nccl", "--device", "cpu"],
     ["biawgn", "1200_3_6_ldpc", "MSA", "--kernel", "xla"],
     ["bsc", "1200_3_6_ldpc", "ADMM", "--train", "--kernel", "xla"],
-    ["bsc", "1200_3_6_ldpc", "SPA", "--mesh-code", "2"],
+    ["bec", "1200_3_6_ldpc", "SPA", "--mesh-code", "2"],
 ])
 def test_cli_refuses_unported(argv, capsys):
     with pytest.raises(SystemExit) as e:
         port_main.parse_args(argv)
     assert e.value.code != 0
-    assert "not ported yet (ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    line = " ".join(argv)
+    want = [m for k, m in _MESH_REFUSALS.items() if k in line]
+    if "--kernel" in argv:
+        want = ["not ported yet (ROADMAP A.4"]
+    assert len(want) == 1 and want[0] in err, (want, err)
 
 
 def test_cli_flags_map_to_config():
@@ -258,7 +276,8 @@ def test_port_imports_no_jax():
         "need = ['codes.ensembles', 'decoders.bp_ensemble',"
         " 'harness.ensemble_runner', 'viz.ens_average',"
         " 'design.density_evolution', 'decoders.admma', 'viz.graph',"
-        " 'viz.cases', 'viz.polytope', 'utils.mpl']\n"
+        " 'viz.cases', 'viz.polytope', 'utils.mpl', 'parallel.mesh',"
+        " 'parallel.bp_edge_sharded', 'parallel.jobs']\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in need)\n"
         "assert 'matplotlib' not in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -12,7 +12,8 @@
 - ``stream_batches``: count, determinism, and nothing sampled for
   ``count <= 0``;
 - the CLI: the same file name and ``arr`` as the JAX CLI on the same argv,
-  fresh and resumed; ``--mesh`` refused with its ROADMAP item;
+  fresh and resumed; ``--mesh`` refused where the batch does not divide
+  over its ranks;
 - ``viz.luby_graph``: the histogram, soliton and average-degree plots render
   from the port's own Saver file.
 
@@ -224,10 +225,12 @@ def test_cli_equals_jax_cli_fresh_and_resumed(tmp_path):
 
 
 def test_cli_refuses_mesh(tmp_path, capsys):
+    """A batch that does not divide over the ranks is refused before any
+    rank starts or any file is written (the JAX CLI runs it unsharded)."""
     with pytest.raises(SystemExit):
-        lt.main(["60", "120", "0.1", "0.5", "8", "--mesh", "2", "--device",
+        lt.main(["60", "120", "0.1", "0.5", "8", "--mesh", "3", "--device",
                  "cpu", "--data_dir", str(tmp_path)])
-    assert "A.15 (multi-device)" in capsys.readouterr().err
+    assert "does not divide over 3 ranks" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
 
 
