@@ -193,10 +193,9 @@ Phases (any failure exits non-zero and prints no result line):
    single-process replays of each rank's stream at B = 8192, chunk for
    chunk, for the chunks the mesh run took; ``msa_decode.cu`` must launch
    in each rank; the step's cw/s at 3.0 dB over 4,194,304 words at one rank
-   (before and after the spawn) and at two ranks, with the tally summed on
-   the host at consume (the default over gloo) and on the card at dispatch
-   (the default over NCCL), in turns host, device, device, host; (b) ADMM at 2.5 dB, cap 50, B = 16384: the same exact replay, the
-   2000-bin histogram included; (c) REG_ENS biAWGN SPA bf16 2.0 dB over its
+   (before and after the spawn) and, twice, at two ranks (the tally summed
+   on the host at consume, gloo's design); (b) ADMM at 2.5 dB, cap 50,
+   B = 16384: the same exact replay, the 2000-bin histogram included; (c) REG_ENS biAWGN SPA bf16 2.0 dB over its
    first two members, rotating (B = 16384) and joint (2048 per member):
    the same replay per member; (d) the edge-sharded decoder
    (``EdgeShardedBPDecoder``, a 2-rank ``code`` mesh) on LDPC(1200,3,6)
@@ -212,10 +211,16 @@ Phases (any failure exits non-zero and prints no result line):
    sims, ``--batch 64``: ``arr`` equals the rank-ordered concatenation of
    each rank's stream replayed alone, and its mean and std lie within 4 SE
    of the artifact as in phase 6; s/sim at one rank (phase 6) and at two,
-   and the device's idle share; (g) with two cards or more, (a) and its
-   two tally designs again over NCCL, a card per rank; else the phase says
-   that NCCL was not run. Every
-   rank must import no jax, and the ranks must hold the same results.
+   and the device's idle share (CUDA events around each batch's
+   ``simulate`` in each rank, as phase 6 times one process); (g) with two
+   cards or more, (a) and its two timed runs again over NCCL, a card per
+   rank (the tally summed on the card at dispatch, NCCL's design); else
+   the phase says that NCCL was not run; (h) the cap sweep
+   (``CapSweepRunner``, REG_BAD's labels) on LDPC(1200,3,6) biAWGN MSA
+   bf16 2.0 dB, codeword 1, B = 16384, 64 chunks (1,048,576 words): every
+   label's summed tallies equal the replays, and ``msa_decode.cu``'s
+   ``caps=`` form launches in each rank; its seconds beside one rank's. Every rank must import no jax, and the ranks must hold the same
+   results.
 
 The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
 bytes it must move (input read once, K output planes and the iteration
@@ -325,6 +330,7 @@ MESH_RANKS = 2
 MESH_FLAG_PARAMS = [2.5, 3.0]
 MESH_FLAG_MIN_WEC = 5000
 MESH_RATE_WORDS = 256 * B_STEP
+MESH_CAPS_WORDS = 64 * B_STEP
 MESH_EDGE_B = 4096
 MESH_ENS_MIN_WEC = 8000
 
@@ -826,6 +832,38 @@ def admma_phase(card: str) -> int:
     return n_admm
 
 
+def lt_cli_rank(argv) -> dict:
+    """Phase 8 (f) in each rank: the luby CLI (``jobs.cli``) with this
+    rank's device time in ``busy_s``: CUDA events around each batch's
+    ``simulate`` (copies, edge layout, peel), summed, as phase 6 times one
+    process."""
+    import torch
+
+    from ldpc_decoders_tpu_torch.fountain import lt
+    from ldpc_decoders_tpu_torch.parallel import jobs
+
+    real = lt.LTSimulator.simulate
+    events = []
+
+    def simulate(self, tables):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(self, tables)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    lt.LTSimulator.simulate = simulate
+    try:
+        out = jobs.cli("ldpc_decoders_tpu_torch.fountain.lt:main", argv)
+    finally:
+        lt.LTSimulator.simulate = real
+    torch.cuda.synchronize()
+    out["busy_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    return out
+
+
 def mesh_phase(card: str, lt_one: dict) -> dict:
     """Phase 8, several ranks (``parallel/``), one process per rank. Ranks
     share the card over gloo where it has no card for each. Returns each
@@ -839,7 +877,11 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
     from ldpc_decoders_tpu_torch.decoders.admma import mlp_init
     from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
     from ldpc_decoders_tpu_torch.codes import get_code
-    from ldpc_decoders_tpu_torch.harness import MonteCarloRunner, RunConfig
+    from ldpc_decoders_tpu_torch.harness import (
+        CapSweepRunner,
+        MonteCarloRunner,
+        RunConfig,
+    )
     from ldpc_decoders_tpu_torch.harness.runner import point_generator
     from ldpc_decoders_tpu_torch.parallel import jobs, spawn
 
@@ -858,6 +900,7 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
                     min_wec=MESH_ENS_MIN_WEC, batch=B_STEP,
                     msg_dtype="bfloat16", **common)
     joint = dataclasses.replace(rot, batch=B_JOINT, min_wec=1000)
+    caps = dataclasses.replace(rate, params=[2.0], max_words=MESH_CAPS_WORDS)
     # (code, channel, param, codeword, variant, decoder keywords)
     edge = [(c, ch, p, cw, v, dict(kw, max_iter=10, check_init=False))
             for c, ch, p, cw in ((FLAG, "biawgn", 2.0, 0),
@@ -871,11 +914,14 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
     lt_argv = [str(LT_K), str(LT_N), "0.03", str(LT_DELTA), str(LT_CLI_SIMS),
                "--batch", str(LT_BATCH), "--mesh", str(n), "--console"]
 
-    def replay(cfg, seed, idx, param, chunks):
+    def replay(cfg, seed, idx, param, chunks, cap_labels=None):
         """Sum over the ranks r of ``chunks`` chunks of rank r's stream,
-        decoded in this process alone at batch / n."""
-        runner = MonteCarloRunner(dataclasses.replace(
-            cfg, batch=cfg.batch // n, seed=seed, data_dir=None))
+        decoded in this process alone at batch / n (by the cap sweep over
+        ``cap_labels`` where given: a column per label, in their order)."""
+        one = dataclasses.replace(cfg, batch=cfg.batch // n, seed=seed,
+                                  data_dir=None)
+        runner = (CapSweepRunner(one, cap_labels) if cap_labels
+                  else MonteCarloRunner(one))
         acc = 0
         for r in range(n):
             gen = point_generator(runner.device, seed, idx, r, n)
@@ -883,7 +929,7 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
                 host, event = runner._dispatch(param, gen)
                 event.synchronize()
                 acc = acc + host.numpy().astype(np.int64)
-        return acc
+        return acc[:, np.argsort(runner.order)] if cap_labels else acc
 
     def hold(label, st, want):
         got = [st["wec"], st["bec"]] + (st["dec"]["iter"] if "dec" in st
@@ -928,41 +974,48 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
                               train=True, layers=ADMMA_LAYERS,
                               cache_dir=os.path.join(tmp, "cache"), **common)
         lt_dir = os.path.join(tmp, "lt")
-        tasks = [("harness", dict(cfg=flag)),
-                 *[("harness", dict(cfg=rate, tally=t))
-                   for t in ("host", "device", "device", "host")],
-                 ("harness", dict(cfg=admm)),
-                 ("harness", dict(cfg=rot, kind="rotating", members=members)),
-                 ("harness", dict(cfg=joint, kind="joint", members=members)),
-                 *[("edge_decode", dict(
+        named = [("flag", ("harness", dict(cfg=flag))),
+                 *[(f"rate{i}", ("harness", dict(cfg=rate)))
+                   for i in range(2)],
+                 ("admm", ("harness", dict(cfg=admm))),
+                 ("caps", ("harness", dict(cfg=caps, kind="caps",
+                                           caps=CAP_LABELS))),
+                 ("rotating", ("harness", dict(cfg=rot, kind="rotating",
+                                               members=members))),
+                 ("joint", ("harness", dict(cfg=joint, kind="joint",
+                                            members=members))),
+                 *[(f"edge{i}", ("edge_decode", dict(
                      code=c, variant=v, device="cuda", llr=dict(
                          channel=ch, param=p, words=MESH_EDGE_B, seed=80 + i,
-                         codeword=cw), **kw))
+                         codeword=cw), **kw)))
                    for i, (c, ch, p, cw, v, kw) in enumerate(edge)],
-                 ("harness", dict(cfg=code_1d, n_code=n)),
-                 ("harness", dict(cfg=admma_cfg)),
-                 ("lt_cli", dict(argv=lt_argv + ["--data_dir", lt_dir])),
-                 ("lt_replay", dict(k=LT_K, n=LT_N, c=0.03, delta=LT_DELTA,
-                                    count=LT_CLI_SIMS // n,
-                                    batch=LT_BATCH // n, device="cuda"))]
+                 ("code_1d", ("harness", dict(cfg=code_1d, n_code=n))),
+                 ("admma", ("harness", dict(cfg=admma_cfg))),
+                 ("luby", (lt_cli_rank,
+                           dict(argv=lt_argv + ["--data_dir", lt_dir]))),
+                 ("luby_replay", ("lt_replay", dict(
+                     k=LT_K, n=LT_N, c=0.03, delta=LT_DELTA,
+                     count=LT_CLI_SIMS // n, batch=LT_BATCH // n,
+                     device="cuda")))]
+        tasks = [t for _, t in named]
         rate_one = [one_rank_rate()]
         t0 = time.perf_counter()
         outs = spawn("ldpc_decoders_tpu_torch.parallel.jobs:sequence", n,
                      args=(tasks,), device="cuda", backend="gloo")
         spawn_s = time.perf_counter() - t0
         rate_one.append(one_rank_rate())
-        res = {i: [o[i] for o in outs] for i in range(len(tasks))}
-        for i, (name, _) in enumerate(tasks):
-            for o in res[i]:
-                if name != "lt_replay" and o["jax"]:
-                    fail(f"mesh task {i}: rank {o['rank']} imported jax")
+        res = {k: [o[i] for o in outs] for i, (k, _) in enumerate(named)}
+        for k, ranks in res.items():
+            for o in ranks:
+                if k != "luby_replay" and o["jax"]:
+                    fail(f"mesh task {k}: rank {o['rank']} imported jax")
         with open(os.path.join(lt_dir, f"luby-{LT_K}-{LT_N}-0.03-"
                                f"{LT_DELTA}.json")) as fp:
             lt_saved = json.load(fp)
         lt_files = os.listdir(lt_dir)
 
     # (a) the flagship: summed tallies == the replays, chunk for chunk.
-    a = res[0]
+    a = res["flag"]
     count(a, "msa_decode", "flagship")
     for idx, p in enumerate(flag.params):
         st = a[0]["results"][p]
@@ -972,19 +1025,18 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
               f"{chunks} chunks, wec {st['wec']} bec {st['bec']} == the sum "
               f"of the ranks' single-process replays | {card}", flush=True)
     cards = min(n, torch.cuda.device_count())
-    rates = {t: [] for t in ("host", "device")}
-    for i, t in zip(range(1, 5), ("host", "device", "device", "host")):
-        count(res[i], "msa_decode", "flagship rate")
-        rates[t].append(res[i][0]["results"][3.0]["words_per_sec"])
+    rates = []
+    for i in range(2):
+        count(res[f"rate{i}"], "msa_decode", "flagship rate")
+        rates.append(res[f"rate{i}"][0]["results"][3.0]["words_per_sec"])
     print(f"timing mesh flagship step MSA bf16 3.0 dB, B={B_STEP}, "
           f"{MESH_RATE_WORDS} words: one rank {rate_one[0]:.1f} / "
-          f"{rate_one[1]:.1f} cw/s; {n} ranks over gloo on {cards} card(s), tally "
-          f"summed on the host {rates['host'][0]:.1f} / {rates['host'][1]:.1f}"
-          f" cw/s, on the card {rates['device'][0]:.1f} / "
-          f"{rates['device'][1]:.1f} cw/s | {card}", flush=True)
+          f"{rate_one[1]:.1f} cw/s; {n} ranks over gloo on {cards} card(s), "
+          f"tally summed on the host {rates[0]:.1f} / {rates[1]:.1f} cw/s "
+          f"| {card}", flush=True)
 
     # (b) ADMM with its histogram.
-    b = res[5]
+    b = res["admm"]
     count(b, "admm_decode", "admm")
     st = b[0]["results"][2.5]
     hold("admm 2.5 dB", st, replay(admm, admm.seed, 0, 2.5,
@@ -994,10 +1046,10 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
           flush=True)
 
     # (c) REG_ENS through both routes, member m seeded seed + m.
-    for i, label, cfg in ((6, "rotating", rot), (7, "joint", joint)):
-        count(res[i], "spa_ref_decode", f"REG_ENS {label}")
+    for label, cfg in (("rotating", rot), ("joint", joint)):
+        count(res[label], "spa_ref_decode", f"REG_ENS {label}")
         for m, name in enumerate(members):
-            st = res[i][0]["results"][name][2.0]
+            st = res[label][0]["results"][name][2.0]
             member = dataclasses.replace(cfg, code=name)
             hold(f"REG_ENS {label} {name}", st,
                  replay(member, cfg.seed + m, 0, 2.0, st["tot"] // cfg.batch))
@@ -1006,8 +1058,8 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
 
     # (d) edge sharding: against BPDecoder's kernel on the same LLRs.
     for j, (c, ch, p, cw, v, kw) in enumerate(edge):
-        o = res[8 + j][0]
-        if not np.array_equal(o["x_hat"], res[8 + j][1]["x_hat"]):
+        o = res[f"edge{j}"][0]
+        if not np.array_equal(o["x_hat"], res[f"edge{j}"][1]["x_hat"]):
             fail(f"mesh edge {c} {v}: the ranks' decisions differ")
         llr = jobs.make_llr(c, ch, p, MESH_EDGE_B, 80 + j, "cuda", cw)
         dec = BPDecoder(get_code(c).graph, v, device="cuda", **kw)
@@ -1031,13 +1083,15 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
             fail(f"mesh edge {c} {v}{pol}: {bad} words differ, or the "
                  "iteration counts do")
     p = code_1d.params[0]
-    if strip(res[14][0]["results"]) != strip(res[14][1]["results"]):
+    if strip(res["code_1d"][0]["results"]) != \
+            strip(res["code_1d"][1]["results"]):
         fail("mesh code 1-D: the ranks' results differ")
-    wer_close(f"code mesh 1x{n} margulis MSA {p} dB", res[14][0]["results"][p],
+    wer_close(f"code mesh 1x{n} margulis MSA {p} dB",
+              res["code_1d"][0]["results"][p],
               MonteCarloRunner(code_1d).run()[p])
 
     # (e) ADMMA: data-parallel training.
-    e = res[15]
+    e = res["admma"]
     if strip(e[0]["results"]) != strip(e[1]["results"]):
         fail("mesh admma: the ranks' results differ")
     mlps = [o["mlp"] for o in e]
@@ -1054,7 +1108,7 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
           f"{card}", flush=True)
 
     # (f) the luby CLI on two ranks against the ranks' own replays.
-    f, reps = res[16], res[17]
+    f, reps = res["luby"], res["luby_replay"]
     count(f, "lt_peel", "luby")
     want = [v for j in range(len(reps[0])) for r in range(n)
             for v in reps[r][j]]
@@ -1090,28 +1144,47 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
     wer_close("code mesh 2x2 flagship MSA bsc", outs4[0]["results"][p],
               MonteCarloRunner(code_2d).run()[p])
 
-    # (g) NCCL, one card per rank: (a) again, and the two tally designs.
+    # (g) NCCL, one card per rank: (a) and its timed runs again.
     if torch.cuda.device_count() >= n:
         g = spawn("ldpc_decoders_tpu_torch.parallel.jobs:sequence", n,
-                  args=(tasks[:5],), device="cuda")
-        g = {i: [o[i] for o in g] for i in range(5)}
-        count(g[0], "msa_decode", "flagship nccl")
+                  args=(tasks[:3],), device="cuda")
+        count([o[0] for o in g], "msa_decode", "flagship nccl")
         for idx, p in enumerate(flag.params):
             st = g[0][0]["results"][p]
             hold(f"flagship nccl {p} dB", st, replay(
                 flag, flag.seed, idx, p, st["tot"] // flag.batch))
-        rates = {t: [] for t in ("host", "device")}
-        for i, t in zip(range(1, 5), ("host", "device", "device", "host")):
-            count(g[i], "msa_decode", "flagship rate nccl")
-            rates[t].append(g[i][0]["results"][3.0]["words_per_sec"])
+        rates = []
+        for i in (1, 2):
+            count([o[i] for o in g], "msa_decode", "flagship rate nccl")
+            rates.append(g[0][i]["results"][3.0]["words_per_sec"])
         print(f"mesh flagship over NCCL, {n} cards: tallies == the replays; "
-              f"cw/s with the tally summed on the host {rates['host'][0]:.1f}"
-              f" / {rates['host'][1]:.1f}, on the card "
-              f"{rates['device'][0]:.1f} / {rates['device'][1]:.1f} | {card}",
-              flush=True)
+              f"cw/s with the tally summed on the card {rates[0]:.1f} / "
+              f"{rates[1]:.1f} | {card}", flush=True)
     else:
         print(f"mesh NCCL: not run, {torch.cuda.device_count()} card(s) "
               f"for {n} ranks | {card}", flush=True)
+
+    # (h) the cap sweep: every label's summed tallies == the replays.
+    h = res["caps"]
+    count(h, "msa_decode_caps", "cap sweep")
+    p = caps.params[0]
+    sweep = h[0]["results"]
+    chunks = sweep[CAP_LABELS[0]][p]["tot"] // caps.batch
+    want = replay(caps, caps.seed, 0, p, chunks, CAP_LABELS)
+    t0 = time.perf_counter()
+    CapSweepRunner(caps, CAP_LABELS).run()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    for j, lbl in enumerate(CAP_LABELS):
+        st = sweep[lbl][p]
+        if [st["wec"], st["bec"]] != [int(want[0][j]), int(want[1][j])]:
+            fail(f"mesh cap sweep label {lbl}: the ranks' summed tallies != "
+                 "the replays of each rank's stream")
+    print(f"mesh cap sweep biawgn MSA bf16 {p} dB, labels {CAP_LABELS}, "
+          f"{caps.max_words} words, {n} ranks over gloo on {cards} card(s): "
+          f"{h[0]['seconds']:.3f} s (one rank {one_s:.3f} s), {chunks} "
+          f"chunks, every label's tallies == the replays; wec at the largest "
+          f"cap {sweep[max(CAP_LABELS)][p]['wec']} | {card}", flush=True)
     print(f"phase 8 (several ranks): {time.perf_counter() - t_phase:.1f} s, "
           f"the {n}-rank spawn {spawn_s:.1f} s | {card}", flush=True)
     return launches

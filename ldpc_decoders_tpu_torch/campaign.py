@@ -23,8 +23,8 @@ Case registry: HMG, MAR, REG_BAD, REG_ENS, IREG_ENS. What runs:
 
 ``mesh`` (``--mesh N`` on the CLI, which spawns the ranks as ``main``
 does) goes to the plain, rotating and joint runners, as the JAX function
-passes it; the cap sweeps take none there either, so under a mesh every
-rank runs them whole and rank 0 writes their files.
+passes it, and to the cap sweeps, which the JAX function runs on one
+device: here they fan out over the ranks as the other runners do.
 
 Precision is explicit. The JAX harness moves a float32 biAWGN BP run to
 its bf16 kernel on a chip and keeps the BSC in float32; the port's
@@ -198,8 +198,8 @@ def run_campaign(case_names, data_dir=None, mesh=None, overrides=None,
     an ensemble run's results as {member: {param: metrics}}. biAWGN legs
     run bf16 messages and BSC legs float32 (module docstring); cap sweeps
     and joint ensemble runs go at batch 2048 as the JAX package has them.
-    ``overrides`` (RunConfig fields) apply last; ``mesh`` shards the plain
-    and ensemble runs' batches."""
+    ``overrides`` (RunConfig fields) apply last; ``mesh`` shards every
+    run's batch."""
     results = {}
     for name, kind, cfg, extra in _plan(case_names, use_ensemble,
                                         joint_ensemble):
@@ -211,7 +211,7 @@ def run_campaign(case_names, data_dir=None, mesh=None, overrides=None,
         cfg = dataclasses.replace(cfg, **(overrides or {}))
         if kind == "caps":
             results[(name, f"caps:{to_argv(cfg)}")] = CapSweepRunner(
-                cfg, extra).run()
+                cfg, extra, mesh=mesh).run()
         elif kind == "rotating":
             results[(name, f"rotating:{to_argv(cfg)}")] = \
                 run_rotating_members(cfg, extra, mesh=mesh)

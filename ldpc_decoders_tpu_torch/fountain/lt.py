@@ -308,6 +308,17 @@ def batch_sizes(count: int, batch: int, mesh=None) -> list:
     return sizes
 
 
+def rank_rng(seed: int, done: int, rank: int = 0,
+             ranks: int = 1) -> np.random.Generator:
+    """The rng of rank ``rank`` of ``ranks`` in a run seeded ``seed`` that
+    resumes after ``done`` committed sims: one rank draws the stream of a
+    run without a mesh, ``(seed, done)``; rank r of N > 1 draws
+    ``(seed, done, r, N)`` (the counterpart of the harness's
+    ``point_generator``)."""
+    key = [seed, done] if ranks == 1 else [seed, done, rank, ranks]
+    return np.random.default_rng(key)
+
+
 def stream_batches(sim: LTSimulator, rng: np.random.Generator, count: int,
                    batch: int, mesh=None):
     """Decode ``count`` sims in batches of ``batch``, yielding each batch's
@@ -430,10 +441,8 @@ def main(argv=None):
     n_done = mesh.host_broadcast(len(arr)) if mesh is not None else len(arr)
     if arr:
         log.info("resuming from %d committed sims", len(arr))
-    key = [args.seed, n_done]
-    if ranks > 1:
-        key += [mesh.index("batch"), ranks]
-    rng = np.random.default_rng(key)
+    rng = rank_rng(args.seed, n_done,
+                   mesh.index("batch") if mesh is not None else 0, ranks)
     for res in stream_batches(sim, rng, args.count - n_done, args.batch,
                               mesh):
         if saver:

@@ -21,8 +21,11 @@ max_iter label semantics (calibrated on the committed goldens):
 One route per device: the kernel on CUDA, the plain version on the CPU. A
 kernel that fails raises; there is no probe and no fallback.
 
-The sweep takes no mesh, as in the JAX package: in a run of several ranks
-each rank runs it whole on its own card, and only rank 0 writes.
+With a ``mesh`` (a ``batch`` axis only) the sweep fans out as
+``MonteCarloRunner`` does: rank r of N decodes ``batch / N`` words a chunk
+from its own generator, the per-cap tallies are summed over the ranks
+(``Mesh.device_tally``), every rank stops on the same sums, and only rank
+0 writes. One rank draws the stream of a run without a mesh.
 """
 
 from __future__ import annotations
@@ -48,9 +51,13 @@ class CapSweepRunner(MonteCarloRunner):
     spells them; the decode runs once to the largest effective cap. BP
     decoders only (SPA/MSA, the ternary SPA on bec)."""
 
-    def __init__(self, cfg: RunConfig, cap_labels: Sequence[int]):
+    def __init__(self, cfg: RunConfig, cap_labels: Sequence[int],
+                 mesh=None):
         if cfg.decoder not in ("SPA", "MSA"):
             raise ValueError("cap sweep supports BP decoders only")
+        if mesh is not None and "code" in mesh.axis_names:
+            raise ValueError("the cap sweep shards its batch only; a mesh "
+                             "with a code axis does not apply")
         self.cap_labels = list(cap_labels)
         # label 0 = raw channel output (slot 0 of the tally, no decode);
         # label < 0 = converge (iter_cap); label > 0 = that cap.
@@ -68,7 +75,7 @@ class CapSweepRunner(MonteCarloRunner):
             raise ValueError("need at least one decoding cap label")
         self.K = self.n_zero + len(self.caps)
 
-        super().__init__(cfg)
+        super().__init__(cfg, mesh=mesh)
 
     def _make_decoder(self):
         cfg = self.cfg
@@ -97,7 +104,7 @@ class CapSweepRunner(MonteCarloRunner):
         """One super-batch -> the packed ``[2, K]`` tally (word errors and
         bit errors per cap, ascending caps), on device."""
         cfg = self.cfg
-        x = self._sample_x(gen, cfg.batch)
+        x = self._sample_x(gen, self.local_batch)
         y = self.mod.send(x, param, gen)
         soft = y if cfg.channel == "bec" else self.mod.llr(y, param)
         x_hats, _ = self.dec.decode_multi_cap(soft, self.caps)
@@ -147,6 +154,8 @@ class CapSweepRunner(MonteCarloRunner):
             host, event = pending.popleft()
             if event is not None:
                 event.synchronize()
+            if self.mesh is not None and not self._device_sum:
+                self.mesh.host_sum(host, "batch")
             arr = host.numpy().astype(np.int64)
             wec[:] += arr[0]
             bec[:] += arr[1]

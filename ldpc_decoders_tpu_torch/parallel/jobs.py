@@ -1,6 +1,8 @@
 """What a rank runs when tests, ``chip_smoke.py`` or a script spawn ranks
-with :func:`~ldpc_decoders_tpu_torch.parallel.mesh.spawn`: the spawned
-processes import these functions by name, and they import nothing of JAX.
+with :func:`~ldpc_decoders_tpu_torch.parallel.mesh.spawn` to hold a
+multi-rank run against single-process replays: the spawned processes
+import these functions by name, and they import nothing of JAX. The CLIs
+do not use this module.
 
 Each returns, beside its own output, the facts its caller holds a
 multi-rank run to: the rank, whether it is the coordinator, whether
@@ -35,11 +37,16 @@ def kernel_launches() -> dict:
         spa_kernel,
     )
 
-    spa = spa_kernel.spa_decode_cuda
-    return {"msa_decode": msa_kernel.msa_decode_cuda.launches,
+    msa, spa = msa_kernel.msa_decode_cuda, spa_kernel.spa_decode_cuda
+    bec = bec_kernel.bec_spa_decode_cuda
+    return {"msa_decode": msa.launches,
+            "msa_decode_caps": msa.launches_caps,
             "spa_decode": spa.launches["saturate"],
+            "spa_decode_caps": spa.launches_caps["saturate"],
             "spa_ref_decode": spa.launches["reference"],
-            "bec_decode": bec_kernel.bec_spa_decode_cuda.launches,
+            "spa_ref_decode_caps": spa.launches_caps["reference"],
+            "bec_decode": bec.launches,
+            "bec_decode_caps": bec.launches_caps,
             "admm_decode": admm_kernel.admm_decode_cuda.launches,
             "lt_peel": lt_kernel.lt_peel_cuda.launches}
 
@@ -58,26 +65,29 @@ def _sync(device) -> None:
 
 
 def harness(cfg, kind: str = "plain", members=None, n_code: int = 0,
-            tally: str = "auto") -> dict:
-    """Run ``cfg`` on a mesh of the world's ranks: a ``batch`` mesh, or
-    with ``n_code`` a ``[world / n_code, n_code]`` batch x code mesh (1-D
-    where it is the whole world). ``kind``: "plain" (``MonteCarloRunner``),
-    "rotating" (``run_rotating_members`` over ``members``) or "joint"
-    (``EnsembleMonteCarloRunner``). Returns the results, the seconds the
-    run took, where the tallies were summed (``device_tally``), for "plain"
-    whether this rank built a Saver and, for ADMMA, the MLP's parameters
-    after it."""
+            caps=None, mesh=None) -> dict:
+    """Run ``cfg`` on ``mesh``, by default a mesh of the world's ranks: a
+    ``batch`` mesh, or with ``n_code`` a ``[world / n_code, n_code]``
+    batch x code mesh (1-D where it is the whole world). ``kind``: "plain"
+    (``MonteCarloRunner``), "rotating" (``run_rotating_members`` over
+    ``members``), "joint" (``EnsembleMonteCarloRunner``) or "caps"
+    (``CapSweepRunner`` over the cap labels ``caps``). Returns the results,
+    the seconds the run took, where the tallies were summed
+    (``device_tally``), for "plain" whether this rank built a Saver and,
+    for ADMMA, the MLP's parameters after it."""
     from ldpc_decoders_tpu_torch.harness import (
         MonteCarloRunner,
         run_rotating_members,
     )
+    from ldpc_decoders_tpu_torch.harness.cap_sweep import CapSweepRunner
     from ldpc_decoders_tpu_torch.harness.ensemble_runner import (
         EnsembleMonteCarloRunner,
     )
 
     launches0 = kernel_launches()
-    mesh = (code_mesh(n_code, world_size() // n_code, tally=tally) if n_code
-            else batch_mesh(tally=tally))
+    if mesh is None:
+        mesh = (code_mesh(n_code, world_size() // n_code) if n_code
+                else batch_mesh())
     out = {"device_tally": mesh.device_tally}
     t0 = time.perf_counter()
     if kind == "plain":
@@ -93,6 +103,8 @@ def harness(cfg, kind: str = "plain", members=None, n_code: int = 0,
     elif kind == "joint":
         out["results"] = EnsembleMonteCarloRunner(cfg, members,
                                                   mesh=mesh).run()
+    elif kind == "caps":
+        out["results"] = CapSweepRunner(cfg, caps, mesh=mesh).run()
     else:
         raise ValueError(f"unknown run kind {kind!r}")
     _sync(cfg.device)
@@ -152,53 +164,24 @@ def cli(entry: str, argv) -> dict:
     return _facts(out, launches0)
 
 
-def lt_cli(argv) -> dict:
-    """The LT CLI (``fountain.lt.main``) under the spawned process group,
-    with this rank's device time: CUDA events around each batch's
-    ``simulate`` (copies, edge layout, peel), summed, in ``busy_s``."""
-    from ldpc_decoders_tpu_torch.fountain import lt
-
-    real = lt.LTSimulator.simulate
-    events = []
-
-    def simulate(self, tables):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(self, tables)
-        stop.record()
-        events.append((start, stop))
-        return out
-
-    lt.LTSimulator.simulate = simulate
-    try:
-        out = cli("ldpc_decoders_tpu_torch.fountain.lt:main", argv)
-    finally:
-        lt.LTSimulator.simulate = real
-    torch.cuda.synchronize()
-    out["busy_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
-    return out
-
-
 def lt_replay(k: int, n: int, c: float, delta: float, count: int,
               batch: int, seed: int = 0, done: int = 0,
               device="cpu") -> list:
     """This rank's LT stream replayed in this process alone, without a
     mesh: ``stream_batches`` of ``count`` sims in batches of ``batch`` from
-    the rng the CLI gives rank r of N after ``done`` committed sims,
-    ``default_rng([seed, done, r, N])``; the batches' results as lists."""
+    the rng the CLI gives this rank after ``done`` committed sims
+    (``fountain.lt.rank_rng``); the batches' results as lists."""
     from ldpc_decoders_tpu_torch.fountain import lt
 
-    key = [seed, done]
-    if world_size() > 1:
-        key += [world_rank(), world_size()]
     sim = lt.LTSimulator(k, n, c, delta, device=device)
-    return [r.tolist() for r in lt.stream_batches(
-        sim, np.random.default_rng(key), count, batch)]
+    rng = lt.rank_rng(seed, done, world_rank(), world_size())
+    return [r.tolist() for r in lt.stream_batches(sim, rng, count, batch)]
 
 
 def sequence(tasks) -> list:
-    """Run ``tasks``, ``[(name of a function of this module, kwargs),
-    ...]``, one after the other in the same ranks (one spawn for many
-    checks); returns their outputs in order."""
-    return [globals()[name](**kw) for name, kw in tasks]
+    """Run ``tasks``, ``[(function, kwargs), ...]``, one after the other in
+    the same ranks (one spawn for many checks); returns their outputs in
+    order. A function is named by its name in this module, by
+    ``"module:function"``, or given as a function the ranks can import."""
+    return [_resolve(fn if callable(fn) or ":" in fn
+                     else f"{__name__}:{fn}")(**kw) for fn, kw in tasks]

@@ -30,9 +30,8 @@ collective is enqueued on the stream and the host does not wait for it.
 Over gloo a collective on a card's tensor blocks the host, so there the
 tally is summed on the host when the runner consumes the chunk
 (``Mesh.host_sum``, after the copy the pipeline already waits for).
-Measured on H100s (``chip_smoke.py`` phase 8; ``PERF.md``), each design
-wins on its backend; ``tally="host"`` or ``"device"`` forces one,
-for that comparison. What must stay on the card (ADMMA's gradients, the
+Measured on H100s (``PERF.md``), each design wins on its backend, so the
+backend picks it. What must stay on the card (ADMMA's gradients, the
 edge-sharded decoder's per-iteration sums) goes through the main group
 (``Mesh.all_reduce``).
 """
@@ -51,7 +50,6 @@ import torch.distributed as dist
 
 AXES = ("batch", "code")
 BACKENDS = ("nccl", "gloo")
-TALLIES = ("auto", "host", "device")
 
 
 def world_size() -> int:
@@ -129,18 +127,16 @@ class Mesh:
     ``("batch", "code")``, in that order), with this rank's coordinates and
     the process group of each axis it lies on: ``groups`` on the main
     backend, ``host_groups`` on gloo (the same groups where the main
-    backend is gloo). ``tally`` says where the runners sum their chunk
-    tallies: "auto" on the card over NCCL and on the host over gloo (module
+    backend is gloo). ``device_tally`` says where the runners sum their
+    chunk tallies: on the card over NCCL, on the host over gloo (module
     docstring). A one-rank mesh needs no process group and makes no
     collective."""
 
-    def __init__(self, shape: dict, tally: str = "auto"):
+    def __init__(self, shape: dict):
         self.shape = {a: int(shape[a]) for a in AXES if a in shape}
         if set(shape) - set(AXES) or not self.shape:
             raise ValueError(f"mesh axes must be among {AXES}, got "
                              f"{list(shape)}")
-        if tally not in TALLIES:
-            raise ValueError(f"tally must be one of {TALLIES}, got {tally!r}")
         self.axis_names = tuple(self.shape)
         self.size = 1
         for n in self.shape.values():
@@ -153,8 +149,7 @@ class Mesh:
             raise ValueError(
                 f"need {self.size} ranks for a {self.shape} mesh, the world "
                 f"has {world} (one process per rank: --mesh spawns them)")
-        self.device_tally = tally == "device" or (
-            tally == "auto" and world > 1 and dist.get_backend() == "nccl")
+        self.device_tally = world > 1 and dist.get_backend() == "nccl"
         n_code = self.width("code")
         self.rank = world_rank()
         self.coords = {"batch": self.rank // n_code,
@@ -227,21 +222,20 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
 
-def batch_mesh(n_devices: Optional[int] = None, tally: str = "auto") -> Mesh:
+def batch_mesh(n_devices: Optional[int] = None) -> Mesh:
     """A 1-D ``batch`` mesh over all ``n_devices`` ranks of the world (the
     whole world when None)."""
-    return Mesh({"batch": world_size() if n_devices is None else n_devices},
-                tally=tally)
+    return Mesh({"batch": world_size() if n_devices is None else n_devices})
 
 
-def code_mesh(n_code: int, n_batch: int = 0, tally: str = "auto") -> Mesh:
+def code_mesh(n_code: int, n_batch: int = 0) -> Mesh:
     """A mesh with a ``code`` axis of ``n_code`` ranks (parity checks shard
     over it: ``EdgeShardedBPDecoder``) and, for ``n_batch > 1``, a
     ``batch`` axis before it: ``[n_batch, n_code]``."""
     shape = {"code": n_code}
     if n_batch and n_batch > 1:
         shape = {"batch": n_batch, "code": n_code}
-    return Mesh(shape, tally=tally)
+    return Mesh(shape)
 
 
 def local_batch(global_batch: int, mesh: Union[Mesh, int, None]) -> int:
@@ -326,14 +320,21 @@ def run_ranks(entry: str, argv: list, ranks: int, device="cuda",
               backend: Optional[str] = None) -> tuple:
     """How a CLI reaches ``ranks`` ranks. In a process group already, or
     under ``torchrun`` (``WORLD_SIZE`` > 1: this process joins its world),
-    this process is a rank: returns (False, None) and the CLI runs on. Else,
-    for more than one rank, spawns them on this host, each running
-    ``entry(argv)`` (``"module:function"``), and returns (True, rank 0's
-    return value)."""
-    if dist.is_initialized():
-        return False, None
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        initialize_distributed(backend=backend, device=device)
+    this process is a rank: returns (False, None) and the CLI runs on; a
+    world of another size than ``ranks`` raises (without a mesh every rank
+    would repeat the whole run). Else, for more than one rank, spawns them
+    on this host, each running ``entry(argv)`` (``"module:function"``), and
+    returns (True, rank 0's return value)."""
+    joined = dist.is_initialized()
+    world = (dist.get_world_size() if joined
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if joined or world > 1:
+        if world != max(ranks, 1):
+            raise ValueError(
+                f"the world has {world} ranks and the command line asks for "
+                f"{max(ranks, 1)}: give the mesh flags for the whole world")
+        if not joined:
+            initialize_distributed(backend=backend, device=device)
         return False, None
     if ranks <= 1:
         return False, None

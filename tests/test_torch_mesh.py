@@ -9,8 +9,10 @@ over gloo ranks (one process per rank, ``parallel.mesh.spawn``).
   chunk, for as many chunks as the mesh run took; the ranks agree; no rank
   imports jax; only rank 0 writes, and its Saver file has the one-rank
   file's schema and rank 0's numbers;
-- the tally summed on the card at dispatch (``tally="device"``, the
-  default over NCCL) gives the host design's sums (the default over gloo);
+- the tally summed through the main group at dispatch (the design of
+  NCCL meshes, forced on a gloo mesh by setting ``Mesh.device_tally``)
+  gives the sums of the host design (gloo's);
+- the cap sweep on two ranks: its per-cap tallies equal the replays too;
 - N = 1: a mesh of one rank gives exactly what no mesh gives (plain,
   rotating, joint, LT), and rank 0 of 1 draws the stream of a run without
   a mesh;
@@ -50,12 +52,14 @@ from jax.sharding import Mesh as JaxMesh  # noqa: E402
 
 from ldpc_decoders_tpu.harness import runner as jax_runner  # noqa: E402
 from ldpc_decoders_tpu.parallel import mesh as jax_mesh  # noqa: E402
+from ldpc_decoders_tpu_torch import campaign  # noqa: E402
 from ldpc_decoders_tpu_torch import main as port_main  # noqa: E402
 from ldpc_decoders_tpu_torch.codes import ensembles  # noqa: E402
 from ldpc_decoders_tpu_torch.codes.code import save_parity_mtx  # noqa: E402
 from ldpc_decoders_tpu_torch.decoders.admma import mlp_init  # noqa: E402
 from ldpc_decoders_tpu_torch.fountain import lt  # noqa: E402
 from ldpc_decoders_tpu_torch.harness import (  # noqa: E402
+    CapSweepRunner,
     MonteCarloRunner,
     RunConfig,
     run_rotating_members,
@@ -99,6 +103,9 @@ LEGS = {
     "joint": ("joint", RunConfig("bsc", "mesh48", "SPA", [0.06], codeword=0,
                                  min_wec=10, batch=64, **COMMON)),
 }
+CAPS = RunConfig("bsc", FLAG, "MSA", [0.04], codeword=1, min_wec=15,
+                 batch=128, **COMMON)
+CAP_LABELS = [10, 0, 2]
 ADMMA = RunConfig("bsc", HMG, "ADMMA", [0.02], codeword=1, min_wec=3,
                   batch=128, max_iter=30, train=True, layers=[16], **COMMON)
 
@@ -146,8 +153,11 @@ def fanout(codes_dir, tmp_path_factory):
     tasks.append(("harness", dict(cfg=admma)))
     for leg in ("msa_bsc", "joint"):
         kind, cfgs[f"device_tally_{leg}"] = LEGS[leg]
-        tasks.append(("harness", dict(cfg=LEGS[leg][1], kind=kind,
-                                      members=MEMBERS, tally="device")))
+        tasks.append(("torch_mesh_ranks:harness_summed_at_dispatch",
+                      dict(cfg=LEGS[leg][1], kind=kind, members=MEMBERS)))
+    cfgs["caps"] = dataclasses.replace(CAPS, data_dir=str(out_dir / "caps"))
+    tasks.append(("harness", dict(cfg=cfgs["caps"], kind="caps",
+                                  caps=CAP_LABELS)))
     outs = mesh.spawn("ldpc_decoders_tpu_torch.parallel.jobs:sequence", N,
                       args=(tasks,), device="cpu", num_threads=1)
     return cfgs, {name: [outs[r][i] for r in range(N)]
@@ -238,8 +248,9 @@ def test_one_writer_with_the_one_rank_schema(fanout, tmp_path, leg):
 
 @pytest.mark.parametrize("leg", ["msa_bsc", "joint"])
 def test_tally_summed_at_dispatch_equals_summed_at_consume(fanout, leg):
-    """A ``tally="device"`` mesh sums each chunk's tally through the main
-    group when it is dispatched: the same streams give the same sums."""
+    """A mesh with ``device_tally`` set sums each chunk's tally through the
+    main group when it is dispatched: the same streams give the same
+    sums."""
     _, outs = fanout
     kind = LEGS[leg][0]
     dev = outs[f"device_tally_{leg}"][0]
@@ -247,6 +258,33 @@ def test_tally_summed_at_dispatch_equals_summed_at_consume(fanout, leg):
         _strip_all(kind, outs[leg][0]["results"])
     # Over gloo the default sums on the host (a card's collective blocks).
     assert dev["device_tally"] and not outs[leg][0]["device_tally"]
+
+
+def test_cap_sweep_fanout_equals_rank_replays(fanout):
+    """The cap sweep on two ranks: every label's tally equals the sum of
+    single-process replays of each rank's stream; only rank 0 writes, one
+    file per label."""
+    cfgs, outs = fanout
+    cfg = cfgs["caps"]
+    a, b = outs["caps"]
+    assert _strip_all("rotating", a["results"]) == \
+        _strip_all("rotating", b["results"])
+    assert not a["jax"] and not b["jax"] and a["launches"] == b["launches"]
+    assert len(os.listdir(cfg.data_dir)) == len(CAP_LABELS)
+    p = cfg.params[0]
+    tot = a["results"][CAP_LABELS[0]][p]["tot"]
+    runner = CapSweepRunner(dataclasses.replace(
+        cfg, batch=cfg.batch // N, data_dir=None), CAP_LABELS)
+    acc = 0
+    for r in range(N):
+        gen = point_generator(runner.device, cfg.seed, 0, r, N)
+        for _ in range(tot // cfg.batch):
+            acc = acc + runner._dispatch(p, gen)[0].numpy().astype(np.int64)
+    for k, lbl in enumerate(runner.order):
+        st = a["results"][CAP_LABELS[lbl]][p]
+        assert (st["tot"], st["wec"], st["bec"]) == (tot, acc[0][k],
+                                                     acc[1][k])
+        assert st["wec"] >= cfg.min_wec
 
 
 def test_admma_data_parallel_training(fanout):
@@ -376,6 +414,27 @@ def test_backend_and_card_rules():
                        2, device="cuda", backend="gloo")
 
 
+@pytest.mark.parametrize("cli", ["main", "campaign", "luby"])
+def test_cli_in_a_launcher_world_needs_its_mesh(monkeypatch, tmp_path, cli):
+    """Under a launcher's world of two ranks (``WORLD_SIZE=2``), a CLI
+    whose mesh flags ask for another number of ranks raises before it
+    joins the world: without a mesh each rank would repeat the run."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    run = {"main": lambda a: port_main.main(
+               ["bsc", HMG, "MSA", "--device", "cpu", "--console"] + a),
+           "campaign": lambda a: campaign.main(
+               ["HMG", "--device", "cpu", "--data_dir", str(tmp_path)] + a),
+           "luby": lambda a: lt.main(
+               ["40", "90", "0.1", "0.5", "8", "--device", "cpu",
+                "--data_dir", str(tmp_path)] + a)}[cli]
+    for extra in ([], ["--mesh", "4"]):
+        with pytest.raises(ValueError, match="the world has 2 ranks"):
+            run(extra)
+    assert not torch.distributed.is_initialized()
+    assert os.listdir(tmp_path) == []
+
+
 def test_cli_mesh_argument_checks(capsys):
     for argv in (["--mesh", "3"], ["--mesh", "-1"],
                  ["--dist-backend", "nccl", "--device", "cpu"]):
@@ -411,8 +470,8 @@ def _lt_replay(argv_count, done, batch, seed=0):
     stream: batch j holds rank 0's share of it, then rank 1's."""
     sim = lt.LTSimulator(40, 90, 0.1, 0.5, device="cpu")
     per_rank = [list(lt.stream_batches(
-        sim, np.random.default_rng([seed, done, r, N]), (argv_count - done)
-        // N, batch // N)) for r in range(N)]
+        sim, lt.rank_rng(seed, done, r, N), (argv_count - done) // N,
+        batch // N)) for r in range(N)]
     return [int(v) for j in range(len(per_rank[0]))
             for r in range(N) for v in per_rank[r][j]]
 
