@@ -137,24 +137,34 @@ Phases (any failure exits non-zero and prints no result line):
    (``lt_peel_plain``) on the same sampled tables: ``result`` and
    ``resolved`` equal, ``est`` equal where resolved, at (k, n) = (40, 46)
    (some sims must fail) and (60, 120), 24 sims each at c=0.1, and 16
-   golden-scale sims per c; (b) the dense engine (``torch.bmm`` rounds)
-   equal to the kernel on the first 4 of those per c, with its time and
-   peak memory; the host's time per sim for the light lists and for the
-   sorted tables, and the card's time to build them from the light lists;
+   golden-scale sims per c; on each, the kernel's own edge layout
+   (``lt_layout_cuda``: its counting sort) held to ``edge_layout``: the
+   offsets equal, each variable's symbols the same multiset; (b) the dense
+   engine (``torch.bmm`` rounds) equal to the kernel on the first 4 of
+   those per c, with its time and peak memory; the host's time per sim for
+   the light lists and for the sorted tables, and the kernel's layout on
+   the card;
    (c) the CLI (``fountain.lt.main``) end to end, 128 sims per c at
    ``--batch 64``: its Saver file has the artifact's name, and its mean
    and std lie within 4 standard errors (the std's kurtosis-adjusted, as
    in ``tests/test_lt.py``) of ``artifacts/data/luby-10000-12000-<c>-0.5
-   .json``; s/sim end to end, the sampler's s/sim, the device time of each
-   batch and the device's idle share; on the CLI's last batch of each c
-   the kernel (CUDA events, with its edge layout, which is also timed
-   alone: ``layout_ms``), the plain sparse engine and the dense engine,
-   the kernel held equal to both. The ``kernels``
-   entry gives c=0.03, and ``by_c`` all three: ``library_ms`` is the dense
-   engine's time (the same function through ``torch.bmm``), ``bound_ms``
-   the bytes of the real edges' two lists and the messages read once and
-   of the outputs written once over 3.35 TB/s; the rounds of the slowest
-   sim (its dependency chain) are printed beside it.
+   .json``; s/sim end to end, the sampler's s/sim, CUDA events around each
+   batch's ``simulate`` and the device's idle share from them; at c=0.03
+   one ``torch.profiler`` window around the CLI's last batch, run again
+   through ``LTSimulator.simulate`` after the timed run: the device time
+   of a batch (its copy and the kernel) apart from the GIL gaps that the
+   events take in while the sampler thread runs; on the CLI's
+   last batch of each c the kernel (CUDA events over 5 launches), its
+   layout alone (``layout_ms``; the peel is the difference), the plain
+   sparse engine and the dense engine, the kernel held equal to both and
+   its tables to ``edge_layout``'s. The dense engine runs the whole batch
+   of 64 at c=0.03 only, and its first 4 sims at 0.01 and 0.1. The
+   ``kernels`` entry gives c=0.03, and ``by_c`` all three: ``library_ms``
+   is the dense engine's time on the whole batch (the same function
+   through ``torch.bmm``; null where it ran on 4 sims), ``bound_ms`` the
+   bytes of the real edges' two lists and the messages read once and of
+   the outputs written once over 3.35 TB/s; the kernel's ripples (one,
+   plus one per prefix jump) are printed beside it.
 
 7. ADMMA and the plots (``decoders/admma.py``; ADMMA has no kernel of its
    own: its train mode runs the plain ADMM loop on the card with the exact
@@ -433,6 +443,12 @@ def lt_phase(card: str) -> tuple:
         return not (torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
                     and torch.equal(a[1][a[2]], b[1][b[2]]))
 
+    def hold_tables(args, n, label):
+        """The kernel's own layout (counting sort) == ``edge_layout``."""
+        tables = lt_kernel.lt_layout_cuda(*args, n)
+        if not lt_kernel.layout_matches(tables, args[0], args[1], n):
+            fail(f"lt_peel's edge layout != edge_layout {label}")
+
     def timed(fn, *args, reps=1):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -443,7 +459,19 @@ def lt_phase(card: str) -> tuple:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps, out
 
-    # (a) the kernel == the plain sparse engine, and (b) the dense engine.
+    def dense_run(k, n, c, tables):
+        dense = lt.LTSimulator(k, n, float(c), LT_DELTA, engine="dense",
+                               device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms, out = timed(dense.simulate, tables)
+        peak = torch.cuda.max_memory_allocated()
+        del dense
+        torch.cuda.empty_cache()
+        return ms, out, peak
+
+    # (a) the kernel == the plain sparse engine, its tables == edge_layout's,
+    # and (b) the dense engine.
     cases = [(k, n, "0.1", sims) for k, n, sims in LT_SMALL]
     cases += [(LT_K, LT_N, c, LT_GOLDEN_SIMS) for c in LT_CS]
     for i, (k, n, c, sims) in enumerate(cases):
@@ -455,12 +483,14 @@ def lt_phase(card: str) -> tuple:
         ms_p, out_p = timed(plain, *args, n)
         if differs(out_k, out_p):
             fail(f"lt_peel kernel != plain sparse engine at k={k} n={n} c={c}")
+        hold_tables(args, n, f"at k={k} n={n} c={c}")
         res = out_k[0]
         n_fail = int((res == n).sum())
         print(f"check lt_peel k={k} n={n} c={c}: {sims} sims equal "
-              f"(result, resolved, est where resolved); failures {n_fail}; "
-              f"mean result {float(res.float().mean()):.1f}; kernel rounds "
-              f"max {int(out_k[3].max())}, plain rounds max "
+              f"(result, resolved, est where resolved), tables == "
+              f"edge_layout; failures {n_fail}; mean result "
+              f"{float(res.float().mean()):.1f}; kernel ripples max "
+              f"{int(out_k[3].max())}, plain rounds max "
               f"{int(out_p[3].max())}; kernel {ms_k:.3f} ms, plain "
               f"{ms_p:.3f} ms, sampling {sample_s / sims:.4f} s/sim | {card}",
               flush=True)
@@ -470,23 +500,15 @@ def lt_phase(card: str) -> tuple:
         if k != LT_K:
             continue
         head = dict(zip(LT_KEYS, (a[:LT_DENSE_SIMS] for a in args)))
-        dense = lt.LTSimulator(k, n, float(c), LT_DELTA, engine="dense",
-                               device=dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ms_d, out_d = timed(dense.simulate, head)
-        peak = torch.cuda.max_memory_allocated()
-        want = [x[:LT_DENSE_SIMS] for x in out_k[:3]]
-        if differs(out_d, want):
+        ms_d, out_d, peak = dense_run(k, n, c, head)
+        if differs(out_d, [x[:LT_DENSE_SIMS] for x in out_k[:3]]):
             fail(f"dense engine != lt_peel kernel at c={c}")
         print(f"check lt dense engine c={c}: {LT_DENSE_SIMS} sims == kernel; "
               f"{ms_d:.3f} ms, peak memory {peak / 2**30:.3f} GiB | {card}",
               flush=True)
-        del dense, out_d
-        torch.cuda.empty_cache()
 
     # The edge tables: sorted on the host (sample_edges without light)
-    # against the light lists plus the layout built on the card.
+    # against the light lists plus the kernel's own layout on the card.
     sim = lt.LTSimulator(LT_K, LT_N, 0.03, LT_DELTA, device=dev)
     host = {}
     for light in (True, False):
@@ -496,19 +518,18 @@ def lt_phase(card: str) -> tuple:
             lt.sample_edges(rng, sim.omega, LT_K, LT_N, sim.e_pad, light=light)
         host[light] = (time.perf_counter() - t0) / 4
     args = on_card(sim.sample_batch(np.random.default_rng(8), LT_BATCH))
-
-    def layout(es, ev, msg):
-        ip_s, perm, ip_v = lt_kernel.edge_layout(es, ev, LT_N, LT_K)
-        return es.gather(-1, perm)
-
-    ms_layout = min(timed(layout, *args)[0] for _ in range(3))
+    lt_kernel.lt_layout_cuda(*args, LT_N)
+    ms_layout = min(timed(lt_kernel.lt_layout_cuda, *args, LT_N)[0]
+                    for _ in range(3))
     print(f"lt edge tables: host sampler {host[True]:.4f} s/sim light, "
           f"{host[False]:.4f} s/sim with the sorted tables (+"
-          f"{host[False] - host[True]:.4f}); layout on the card "
+          f"{host[False] - host[True]:.4f}); the kernel's layout on the card "
           f"{ms_layout:.3f} ms per batch of {LT_BATCH} | {card}", flush=True)
 
-    # (c) the CLI end to end, 128 sims per c; then the kernel, the plain
-    # sparse engine and the dense engine on its last batch.
+    # (c) the CLI end to end, 128 sims per c; then the kernel, its layout
+    # alone, the plain sparse engine and the dense engine on its last batch,
+    # and at c=0.03 that batch once more through the simulator inside one
+    # torch.profiler window.
     real_sample, real_simulate = lt.LTSimulator.sample_batch, \
         lt.LTSimulator.simulate
     launches, entries = 0, {}
@@ -572,49 +593,82 @@ def lt_phase(card: str) -> tuple:
               f"sims): z mean {z_m:.3f}, z std {z_s:.3f}", flush=True)
         print(f"timing lt cli c={c}: {wall / LT_CLI_SIMS:.4f} s/sim end to "
               f"end, sampler {stats['sample_s'] / LT_CLI_SIMS:.4f} s/sim, "
-              f"device per batch (copy, tables, kernel) "
+              f"events per batch (copy, kernel; GIL gaps included) "
               f"{', '.join(f'{x:.3f}' for x in batch_ms)} ms, device idle "
               f"{1 - busy / wall:.4f} of the wall time | {card}", flush=True)
         if not (abs(z_m) < 4 and abs(z_s) < 4):
             fail(f"LT CLI c={c}: mean or std more than 4 SE from {artifact}")
+        profiled = None
+        if c == "0.03":
+            # The device time of a CLI batch (the pinned tables' copy and
+            # the kernel), apart from the GIL gaps that the events above
+            # take in while the sampler thread runs: the profiler's first
+            # start takes seconds, so not inside the timed run.
+            sim = lt.LTSimulator(LT_K, LT_N, float(c), LT_DELTA, device=dev)
+            sim.simulate(stats["tables"])
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                sim.simulate(stats["tables"])
+                torch.cuda.synchronize()
+            rows = {}
+            for ev in prof.key_averages():
+                dev_us = getattr(ev, "device_time_total",
+                                 getattr(ev, "cuda_time_total", 0.0))
+                if dev_us > 0 and \
+                        ev.device_type == torch.autograd.DeviceType.CUDA:
+                    rows[ev.key] = rows.get(ev.key, 0.0) + dev_us / 1e3
+            if not any("lt_peel" in key for key in rows):
+                fail("the profiler window saw no lt_peel kernel on the card")
+            profiled = sum(rows.values())
+            print(f"profile lt cli c={c}, its last batch again through "
+                  f"LTSimulator.simulate: device time {profiled:.4f} ms (" +
+                  ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in sorted(
+                      rows.items(), key=lambda r: -r[1])) +
+                  f"); events around the CLI's batches "
+                  f"{', '.join(f'{x:.3f}' for x in batch_ms)} ms | {card}",
+                  flush=True)
 
-        # The last CLI batch: kernel, plain and dense, kernel held to both.
+        # The last CLI batch: the kernel (with its layout, and the layout
+        # alone), the plain and the dense engine; the kernel held to both
+        # and its tables to edge_layout's. The dense engine takes the whole
+        # batch at c=0.03 and its first LT_DENSE_SIMS sims elsewhere.
         args = on_card(stats["tables"])
         kernel(*args, LT_N)
+        lt_kernel.lt_layout_cuda(*args, LT_N)
         ms_k, out_k = timed(kernel, *args, LT_N, reps=5)
-        ms_lay = timed(layout, *args, reps=5)[0]
+        ms_lay = timed(lt_kernel.lt_layout_cuda, *args, LT_N, reps=5)[0]
         ms_p, out_p = timed(plain, *args, LT_N)
-        dense = lt.LTSimulator(LT_K, LT_N, float(c), LT_DELTA, engine="dense",
-                               device=dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ms_d, out_d = timed(dense.simulate, dict(zip(LT_KEYS, args)))
-        peak = torch.cuda.max_memory_allocated()
-        del dense
-        torch.cuda.empty_cache()
-        if differs(out_k, out_p) or differs(out_d, out_k[:3]):
+        hold_tables(args, LT_N, f"on the CLI batch at c={c}")
+        B = args[0].shape[0]
+        dense_b = B if c == "0.03" else LT_DENSE_SIMS
+        ms_d, out_d, peak = dense_run(
+            LT_K, LT_N, c, dict(zip(LT_KEYS, (a[:dense_b] for a in args))))
+        if differs(out_k, out_p) or differs(out_d,
+                                            [x[:dense_b] for x in out_k[:3]]):
             fail(f"lt_peel != plain or dense on the CLI batch at c={c}")
         # The bound: the edge lists of the real edges, the messages read
         # once; result, est (int32) and resolved (bool) written once.
-        B = args[0].shape[0]
         edges = int((args[0] < LT_N).sum())
         n_bytes = 8 * edges + B * (4 * LT_K + 4 + 5 * LT_K)
         bound = 1e3 * n_bytes / HBM_BYTES_PER_S
-        rounds = out_k[3]
-        print(f"timing lt_peel c={c} B={B}: kernel {ms_k:.4f} ms with its "
-              f"edge layout ({ms_lay:.4f} ms alone, so the kernel "
-              f"{ms_k - ms_lay:.4f}), plain {ms_p:.3f} ms, dense (torch.bmm)"
-              f" {ms_d:.3f} ms peak {peak / 2**30:.3f} GiB; bound "
-              f"{bound:.4f} ms by bytes ({edges} edges); rounds per sim max "
-              f"{int(rounds.max())} mean {float(rounds.float().mean()):.1f}, "
-              f"{1e3 * ms_k / int(rounds.max()):.2f} us per round of the "
-              f"slowest | {card}", flush=True)
+        ripples = out_k[3]
+        print(f"timing lt_peel c={c} B={B}: kernel {ms_k:.4f} ms (its "
+              f"layout {ms_lay:.4f} ms alone, the peel {ms_k - ms_lay:.4f}),"
+              f" plain {ms_p:.3f} ms, dense (torch.bmm) on {dense_b} sims "
+              f"{ms_d:.3f} ms peak {peak / 2**30:.3f} GiB; bound "
+              f"{bound:.4f} ms by bytes ({edges} edges); ripples per sim max "
+              f"{int(ripples.max())} mean {float(ripples.float().mean()):.1f} "
+              f"| {card}", flush=True)
         entries[c] = {"ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
-                      "bound_by": "bytes", "library_ms": ms_d,
-                      "layout_ms": ms_lay, "batch": B,
-                      "rounds_max": int(rounds.max()),
+                      "bound_by": "bytes",
+                      "library_ms": ms_d if dense_b == B else None,
+                      "layout_ms": ms_lay, "peel_ms": ms_k - ms_lay,
+                      "batch": B, "dense_sims": dense_b, "dense_ms": ms_d,
+                      "ripples_max": int(ripples.max()),
                       "cli_s_per_sim": wall / LT_CLI_SIMS,
-                      "cli_idle": 1 - busy / wall}
+                      "cli_idle": 1 - busy / wall,
+                      "profiled_batch_ms": profiled}
     return dict(entries["0.03"], c=0.03, by_c=entries), launches
 
 

@@ -17,8 +17,8 @@ resolved:
 - ``engine="sparse"``: the sorted-edge peel. On CPU tensors it is the plain
   PyTorch version (``ops/lt_kernel.py:lt_peel_plain``, the JAX package's
   ``_segment``); on CUDA tensors it launches the hand-written kernel
-  ``csrc/lt_peel.cu`` (one CTA per sim, the whole peel in one launch) or
-  raises.
+  ``csrc/lt_peel.cu`` (one CTA per sim builds its edge layout and runs the
+  whole peel in one launch) or raises.
 - ``engine="dense"``: the plain PyTorch version of the JAX package's dense
   engine: a 0/1 generator G [B, n, k] per batch, every peel round two
   batched float32 products (``torch.bmm``; TF32 is switched off, so the
@@ -32,9 +32,10 @@ resolved:
   the CLI's batch of 64).
 
 The edge lists ship from the host as ``sample_edges(light=True)`` draws
-them, through pinned memory when the simulator's device is a card; the
-sorted-segment tables (``indptr_sym``, ``perm_var``, ``indptr_var``) are
-built on the device (``ops/lt_kernel.py:edge_layout``).
+them, through pinned memory when the simulator's device is a card. The
+sorted-segment tables are built on the device: by the kernel itself on a
+card (a counting sort per sim), by ``ops/lt_kernel.py:edge_layout``
+(PyTorch's sort and bincounts) for the plain version.
 
 CLI: ``python -m ldpc_decoders_tpu_torch.fountain.lt k n c delta count``.
 With ``--mesh N`` each of N ranks (one process each, spawned by the CLI

@@ -13,8 +13,9 @@ draws): ``edge_sym`` [B, E] int32, non-decreasing, pads = n; ``edge_var``
 [B, E] int32, pads = k; ``msg`` [B, k] int32 bits. Outputs: ``result`` [B]
 int32, the symbols the peeling decoder needed (n on failure); ``est`` [B,
 k] int32 recovered bits, meaningful where ``resolved`` [B, k] bool is set;
-``rounds`` [B] int32, the rounds each form ran (the two forms count them
-differently, so only the first three outputs are compared).
+``rounds`` [B] int32: the plain version's whole peel rounds, the kernel's
+ripples (one, plus one per prefix jump). Only the first three outputs are
+compared.
 
 Semantics (the JAX package's ``_segment``, ``lt.py:290-375``):
 
@@ -29,7 +30,18 @@ Semantics (the JAX package's ``_segment``, ``lt.py:290-375``):
 
 Peeling is confluent, so the fixpoint, and with it the minimal prefix, the
 resolved set and the recovered bits, do not depend on the order in which
-symbols are peeled: the plain version runs whole rounds, the kernel a queue.
+symbols are peeled, nor on the order of a variable's edges: the plain
+version runs whole rounds over tables in a stable order, the kernel a queue
+over tables its own counting sort leaves unordered within each variable.
+
+The sorted-segment tables (``edge_layout``: each symbol's edge range, the
+permutation to variable order, each variable's range) are the plain
+version's, built with PyTorch's sort and bincounts. The kernel builds its
+own, per sim, from the light lists, in its own code (``csrc/lt_peel.cu``: a
+counting sort by ``edge_var``; its peel needs no symbol offsets, which a
+layout-only launch writes where ``edge_sym`` steps up). ``lt_layout_cuda``
+returns them, for checks only; nothing on the card route calls a PyTorch
+sort, bincount or gather.
 """
 
 from __future__ import annotations
@@ -41,16 +53,21 @@ import torch
 from ldpc_decoders_tpu_torch.ops._build import load_library
 from ldpc_decoders_tpu_torch.ops.geometry import SMEM_PER_CTA
 
-MAX_SYMBOLS = 65535      # the kernel's 16-bit ripple queues
+MAX_SYMBOLS = 65535      # the kernel's 16-bit symbol ids and queue counts
+# Warps of the kernel's 32 that retire claimed variables (all 32 build the
+# layout): the fastest count at the golden configuration, measured with
+# scripts/profile_lt_kernel.py.
+PEEL_WARPS = 24
 
 
 def edge_layout(edge_sym: torch.Tensor, edge_var: torch.Tensor, n: int,
                 k: int) -> tuple:
-    """The sorted-segment tables of the light edge lists, on their device:
-    ``indptr_sym`` [B, n+2] (each symbol's edge range; pads in segment n),
-    ``perm_var`` [B, E] int64 (the stable permutation to variable order)
-    and ``indptr_var`` [B, k+2], as ``sample_edges(light=False)`` builds
-    them on the host."""
+    """The plain version's sorted-segment tables of the light edge lists,
+    on their device: ``indptr_sym`` [B, n+2] (each symbol's edge range;
+    pads in segment n), ``perm_var`` [B, E] int64 (the stable permutation
+    to variable order) and ``indptr_var`` [B, k+2], as
+    ``sample_edges(light=False)`` builds them on the host. The kernel's own
+    tables (``lt_layout_cuda``) are held against these."""
     B = edge_sym.shape[0]
     dev = edge_sym.device
 
@@ -151,63 +168,139 @@ def lt_peel_plain(edge_sym: torch.Tensor, edge_var: torch.Tensor,
     return result, est, resolved, rounds
 
 
-def shared_bytes(n: int, k: int) -> int:
-    """The kernel's dynamic shared memory: a 32-bit word per symbol (degree
-    and residual bit), two 16-bit ripple queues of n, and the resolved and
-    recovered bitmaps of k bits each."""
-    return 4 * n + 4 * n + 8 * ((k + 31) // 32)
+def shared_bytes(n: int, k: int, on_chip: bool) -> int:
+    """The kernel's dynamic shared memory: 32 bytes of counters, the ripple
+    queue (a 32-bit slot per variable it can claim, min(n, k)), the
+    resolved and recovered bitmaps of k bits each, and with ``on_chip`` the
+    64-bit symbol words and the variable offsets (k + 1 ints)."""
+    b = 32 + 4 * min(n, k) + 8 * ((k + 31) // 32)
+    if on_chip:
+        b += 8 * n + 4 * (k + 1)
+    return b
 
 
-def lt_peel_cuda(edge_sym: torch.Tensor, edge_var: torch.Tensor,
-                 msg: torch.Tensor, n: int) -> tuple:
-    """Launch ``csrc/lt_peel.cu`` on the current stream (no sync): one CTA
-    per sim, the whole peel in one launch. The edge layout is built on the
-    card first. Counts launches in ``lt_peel_cuda.launches``."""
+def kernel_plan(edge_sym: torch.Tensor, edge_var: torch.Tensor,
+                msg: torch.Tensor, n: int) -> bool:
+    """Check what ``csrc/lt_peel.cu`` takes, on any device: raises
+    ValueError for inputs or sizes it cannot run, else returns whether the
+    symbol words and variable offsets fit in shared memory (else they live
+    in device memory). The bitmaps' budget keeps k below 2^20, which the
+    symbol words' degree field needs."""
     _check_inputs(edge_sym, edge_var, msg, n)
-    if not edge_sym.is_cuda:
-        raise ValueError("lt_peel_cuda needs CUDA tensors")
-    B, E = edge_sym.shape
     k = msg.shape[1]
     if n > MAX_SYMBOLS:
-        raise ValueError(f"n = {n} symbols > {MAX_SYMBOLS}: the kernel's "
-                         "ripple queues hold 16-bit symbol ids")
-    smem = shared_bytes(n, k)
+        raise ValueError(f"n = {n} symbols > {MAX_SYMBOLS}: the kernel "
+                         "keeps 16-bit symbol ids and 16-bit queue counts")
+    smem = shared_bytes(n, k, False)
     if smem > SMEM_PER_CTA:
         raise ValueError(f"k = {k}, n = {n} needs {smem} bytes of shared "
                          f"memory per sim, a CTA has {SMEM_PER_CTA}")
+    return shared_bytes(n, k, True) <= SMEM_PER_CTA
+
+
+def _launch(edge_sym, edge_var, msg, n, peel_warps, layout_only):
+    _check_inputs(edge_sym, edge_var, msg, n)
+    if not edge_sym.is_cuda:
+        raise ValueError("lt_peel_cuda needs CUDA tensors")
+    on_chip = kernel_plan(edge_sym, edge_var, msg, n)
+    if not 1 <= peel_warps <= 32:
+        raise ValueError(f"peel_warps must be in [1, 32], got {peel_warps}")
+    B, E = edge_sym.shape
+    k = msg.shape[1]
     edge_sym, edge_var, msg = (x.contiguous() for x in (edge_sym, edge_var,
                                                         msg))
-    ip_s, perm_var, ip_v = edge_layout(edge_sym, edge_var, n, k)
-    sym_by_var = edge_sym.gather(-1, perm_var)
     dev = edge_sym.device
-    result = torch.empty((B,), dtype=torch.int32, device=dev)
-    est = torch.empty((B, k), dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    sym_by_var = torch.empty((B, E), dtype=torch.int16, device=dev)
+    ip_v = torch.empty((B, k + 2), **i32)
+    words = (None if on_chip
+             else torch.empty((B, n), dtype=torch.int64, device=dev))
+    ip_s = torch.empty((B, n + 2), **i32) if layout_only else None
+    result = torch.empty((B,), **i32)
+    est = torch.empty((B, k), **i32)
     resolved = torch.empty((B, k), dtype=torch.bool, device=dev)
-    rounds = torch.empty((B,), dtype=torch.int32, device=dev)
+    rounds = torch.empty((B,), **i32)
     lib = _kernel_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
     with torch.cuda.device(dev):
         rc = lib.lt_peel_launch(
-            edge_sym.data_ptr(), edge_var.data_ptr(), ip_s.data_ptr(),
-            sym_by_var.data_ptr(), ip_v.data_ptr(), msg.data_ptr(),
+            edge_sym.data_ptr(), edge_var.data_ptr(), msg.data_ptr(),
+            sym_by_var.data_ptr(), ptr(words), ip_v.data_ptr(), ptr(ip_s),
             result.data_ptr(), est.data_ptr(), resolved.data_ptr(),
-            rounds.data_ptr(), B, E, n, k, stream)
+            rounds.data_ptr(), B, E, n, k, int(on_chip), peel_warps,
+            int(layout_only), stream)
     if rc != 0:
-        raise RuntimeError(f"lt_peel kernel launch failed ({smem} bytes of "
-                           "shared memory per CTA): "
+        raise RuntimeError(f"lt_peel kernel launch failed "
+                           f"({shared_bytes(n, k, on_chip)} bytes of shared "
+                           "memory per CTA): "
                            + lib.lt_peel_error_string(rc).decode())
-    lt_peel_cuda.launches += 1
+    if layout_only:
+        return ip_s, sym_by_var.to(torch.int32) & 0xFFFF, ip_v
     return result, est, resolved, rounds
 
 
+def lt_peel_cuda(edge_sym: torch.Tensor, edge_var: torch.Tensor,
+                 msg: torch.Tensor, n: int, *,
+                 peel_warps: int = PEEL_WARPS) -> tuple:
+    """Launch ``csrc/lt_peel.cu`` on the current stream (no sync): one CTA
+    per sim builds its edge layout and runs the whole peel, ``peel_warps``
+    of its 32 warps taking ripple symbols. ``rounds`` are the kernel's
+    ripples (one, plus one per prefix jump). Counts launches in
+    ``lt_peel_cuda.launches``."""
+    out = _launch(edge_sym, edge_var, msg, n, peel_warps, False)
+    lt_peel_cuda.launches += 1
+    return out
+
+
 lt_peel_cuda.launches = 0
+
+
+def lt_layout_cuda(edge_sym: torch.Tensor, edge_var: torch.Tensor,
+                   msg: torch.Tensor, n: int) -> tuple:
+    """The kernel's own edge layout, for checks (not a path of the
+    simulator): the same launch stopped before the peel, returning
+    ``indptr_sym`` [B, n+2] and ``indptr_var`` [B, k+2] as ``edge_layout``
+    gives them, and ``sym_by_var`` [B, E] (the kernel's 16-bit ids as
+    int32), each variable's symbols in its range (in an order the
+    scatter's atomics chose), the pads after them. Counts launches in
+    ``lt_layout_cuda.launches``."""
+    out = _launch(edge_sym, edge_var, msg, n, PEEL_WARPS, True)
+    lt_layout_cuda.launches += 1
+    return out
+
+
+lt_layout_cuda.launches = 0
+
+
+def layout_matches(tables: tuple, edge_sym: torch.Tensor,
+                   edge_var: torch.Tensor, n: int) -> bool:
+    """Whether the kernel's tables (``lt_layout_cuda``) are ``edge_layout``'s:
+    both offset tables equal, and each variable's range of ``sym_by_var``
+    the same multiset of symbols (``edge_layout``'s ranges are sorted, since
+    ``edge_sym`` is)."""
+    ip_s, sym_by_var, ip_v = tables
+    k = ip_v.shape[1] - 2
+    ref_s, perm_var, ref_v = edge_layout(edge_sym, edge_var, n, k)
+    if not (torch.equal(ip_s, ref_s) and torch.equal(ip_v, ref_v)):
+        return False
+    B, E = sym_by_var.shape
+    pos = torch.arange(E, dtype=torch.int32,
+                       device=ip_v.device).expand(B, E).contiguous()
+    seg = torch.searchsorted(ip_v[:, 1:].contiguous(), pos, right=True)
+    key = seg.long() * (n + 1) + sym_by_var.long()
+    got = (key.sort(-1).values % (n + 1)).to(torch.int32)
+    return torch.equal(got, edge_sym.gather(-1, perm_var))
 
 
 def _kernel_library() -> ctypes.CDLL:
     lib = load_library("lt_peel")
     if lib.lt_peel_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lt_peel_launch.argtypes = [p] * 10 + [i] * 4 + [p]
+        lib.lt_peel_launch.argtypes = [p] * 11 + [i] * 7 + [p]
         lib.lt_peel_launch.restype = i
         lib.lt_peel_error_string.argtypes = [i]
         lib.lt_peel_error_string.restype = ctypes.c_char_p

@@ -2,8 +2,10 @@
 kernels against their plain PyTorch versions, bit for bit (decisions and
 iteration counts; ADMM's fractional x too), single-cap and with ``caps=``
 snapshot planes; the LT peel kernel against the plain sparse engine and
-the dense engine (results, resolved sets, recovered bits); ADMMA's train
-mode against the ADMM kernel.
+the dense engine (results, resolved sets, recovered bits), its own edge
+layout against ``edge_layout``, with its tables in shared and in device
+memory, and no PyTorch sort, bincount or gather on its route; ADMMA's
+train mode against the ADMM kernel.
 Marked ``cuda`` and skipped without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -551,6 +553,67 @@ def test_lt_kernel_bit_equal_plain(cuda, seed, k, n, c, batch):
     assert torch.equal(ek[vk], ep[vp])
     if n == 46:
         assert bool((rk == n).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,k,n,c,batch", LT_CASES)
+def test_lt_kernel_layout_equals_edge_layout(cuda, seed, k, n, c, batch):
+    """The kernel's own tables (its counting sort) against ``edge_layout``:
+    offsets equal, each variable's symbols the same multiset."""
+    from ldpc_decoders_tpu_torch.ops import lt_kernel
+
+    _, t = _lt_tables(k, n, c, seed, batch, cuda)
+    args = [t[key].to(cuda) for key in ("edge_sym", "edge_var", "msg")]
+    before = lt_kernel.lt_layout_cuda.launches
+    tables = lt_kernel.lt_layout_cuda(*args, n)
+    assert lt_kernel.lt_layout_cuda.launches == before + 1
+    assert lt_kernel.layout_matches(tables, args[0], args[1], n)
+
+
+@pytest.mark.cuda
+def test_lt_kernel_tables_in_device_memory(cuda):
+    """At the largest n the first form of the kernel took at k=10000, the
+    symbol words and variable offsets do not fit in shared memory: the
+    kernel keeps them in device memory and still equals the plain
+    version, its tables ``edge_layout``'s."""
+    from ldpc_decoders_tpu_torch.ops import lt_kernel
+
+    k = 10000
+    n = (lt_kernel.SMEM_PER_CTA - 8 * ((k + 31) // 32)) // 8
+    _, t = _lt_tables(k, n, 0.03, 6, 2, cuda)
+    args = [t[key].to(cuda) for key in ("edge_sym", "edge_var", "msg")]
+    assert not lt_kernel.kernel_plan(*args, n)
+    rk, ek, vk, _ = lt_kernel.lt_peel_cuda(*args, n)
+    rp, ep, vp, _ = lt_kernel.lt_peel_plain(*args, n)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp) and torch.equal(vk, vp)
+    assert torch.equal(ek[vk], ep[vp])
+    assert lt_kernel.layout_matches(lt_kernel.lt_layout_cuda(*args, n),
+                                    args[0], args[1], n)
+
+
+@pytest.mark.cuda
+def test_lt_card_route_builds_its_layout_in_cuda(cuda, monkeypatch):
+    """The simulator's card route calls no PyTorch sort, bincount or
+    gather: the edge layout is the kernel's own."""
+    from ldpc_decoders_tpu_torch.ops import lt_kernel
+
+    sim, t = _lt_tables(200, 260, 0.03, 3, 16, cuda)
+    want = lt_kernel.lt_peel_plain(
+        *[t[key].to(cuda) for key in ("edge_sym", "edge_var", "msg")], 260)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a PyTorch sort, bincount or gather ran")
+
+    for owner, name in ((torch, "sort"), (torch, "bincount"),
+                        (torch, "gather"), (torch.Tensor, "sort"),
+                        (torch.Tensor, "gather")):
+        monkeypatch.setattr(owner, name, refuse)
+    rk, ek, vk = sim.simulate(t)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert torch.equal(rk, want[0]) and torch.equal(vk, want[2])
+    assert torch.equal(ek[vk], want[1][want[2]])
 
 
 @pytest.mark.cuda

@@ -169,6 +169,124 @@ def test_kernel_route_refuses_cpu_tensors():
         lt_kernel.lt_peel(t["edge_sym"].long(), *args[1:])
 
 
+def _shuffle_within_symbols(edge_sym, edge_var, seed):
+    """``edge_var`` with each symbol's edges in a seeded random order
+    (``edge_sym`` non-decreasing, so a symbol's edges are one range)."""
+    rng = np.random.default_rng(seed)
+    es, ev = edge_sym.numpy(), edge_var.numpy().copy()
+    for b in range(es.shape[0]):
+        bounds = np.flatnonzero(np.diff(es[b])) + 1
+        for lo, hi in zip(np.r_[0, bounds], np.r_[bounds, es.shape[1]]):
+            rng.shuffle(ev[b, lo:hi])
+    return torch.from_numpy(ev)
+
+
+@pytest.mark.parametrize("seed,k,n", ENGINE_CASES)
+def test_plain_peel_ignores_edge_order_within_symbols(seed, k, n):
+    """Confluence, which the kernel's counting sort relies on (its scatter
+    leaves each variable's edges in any order): shuffling each symbol's
+    edges reorders every variable's range, and changes no result."""
+    sim = lt.LTSimulator(k, n, 0.1, 0.5, device="cpu")
+    t = sim.sample_batch(np.random.default_rng(seed), 24)
+    shuffled = _shuffle_within_symbols(t["edge_sym"], t["edge_var"],
+                                       100 + seed)
+    assert not torch.equal(shuffled, t["edge_var"])
+    res, est, rsl, _ = lt_kernel.lt_peel_plain(t["edge_sym"], t["edge_var"],
+                                               t["msg"], n)
+    res2, est2, rsl2, _ = lt_kernel.lt_peel_plain(t["edge_sym"], shuffled,
+                                                  t["msg"], n)
+    assert torch.equal(res2, res) and torch.equal(rsl2, rsl)
+    assert torch.equal(est2[rsl2], est[rsl])
+
+
+def _pr9_largest_n(k):
+    """The largest n at k that the first form of the kernel took:
+    8n + 8 ceil(k / 32) bytes of shared memory, and 16-bit symbol ids."""
+    return min(lt_kernel.MAX_SYMBOLS,
+               (lt_kernel.SMEM_PER_CTA - 8 * ((k + 31) // 32)) // 8)
+
+
+@pytest.mark.parametrize("k", [32, 10000, 100000, 900000])
+def test_kernel_size_checks_keep_every_earlier_size(k):
+    """The wrapper's checks, on CPU tensors (no launch): every (k, n) the
+    first form of the kernel took is still taken; the kernel's own budget
+    (its smallest layout in shared memory, 16-bit symbol ids) is exact,
+    and one step past it raises ValueError; the offsets and symbol words
+    move to device memory exactly where they no longer fit beside it."""
+    z = torch.zeros((1, 8), dtype=torch.int32)
+    msg = torch.zeros((1, k), dtype=torch.int32)
+
+    def plan(n):
+        return lt_kernel.kernel_plan(z, z, msg, n)
+
+    old = _pr9_largest_n(k)
+    plan(old)
+    last = max(n for n in range(old, lt_kernel.MAX_SYMBOLS + 1)
+               if lt_kernel.shared_bytes(n, k, False)
+               <= lt_kernel.SMEM_PER_CTA) if old >= 1 else 0
+    assert last >= old
+    plan(last)
+    with pytest.raises(ValueError, match="16-bit|shared memory"):
+        plan(last + 1)
+    on_chip = [n for n in range(1, last + 1)
+               if lt_kernel.shared_bytes(n, k, True) <= lt_kernel.SMEM_PER_CTA]
+    if on_chip:
+        assert plan(on_chip[-1]) is True
+    if not on_chip or on_chip[-1] < last:
+        assert plan(last) is False
+
+
+def test_kernel_plan_at_the_golden_configuration():
+    z = torch.zeros((1, 8), dtype=torch.int32)
+    assert lt_kernel.kernel_plan(z, z, torch.zeros((1, 10000),
+                                                   dtype=torch.int32), 12000)
+    msg = torch.zeros((1, 10000), dtype=torch.int32)
+    assert not lt_kernel.kernel_plan(z, z, msg, _pr9_largest_n(10000))
+    assert lt_kernel.shared_bytes(12000, 10000, True) == 178540
+
+
+def _counting_sort_layout(edge_sym, edge_var, n, k, seed):
+    """What the kernel's layout gives, in numpy: the offsets, and each
+    variable's symbols in a seeded random order, the pads after them."""
+    rng = np.random.default_rng(seed)
+    B, E = edge_sym.shape
+    ip_s = np.zeros((B, n + 2), np.int32)
+    ip_v = np.zeros((B, k + 2), np.int32)
+    sbv = np.full((B, E), n, np.int32)
+    for b in range(B):
+        s, v = edge_sym[b].numpy(), edge_var[b].numpy()
+        real = int((s < n).sum())
+        ip_s[b, :n + 1] = np.searchsorted(s, np.arange(n + 1))
+        ip_s[b, n + 1] = E
+        cur = np.cumsum(np.bincount(v[:real], minlength=k + 1))
+        for e in rng.permutation(real):
+            cur[v[e]] -= 1
+            sbv[b, cur[v[e]]] = s[e]
+        ip_v[b, :k + 1] = cur
+        ip_v[b, k + 1] = E
+    return tuple(torch.from_numpy(x) for x in (ip_s, sbv, ip_v))
+
+
+@pytest.mark.parametrize("seed,k,n", ENGINE_CASES)
+def test_layout_check_takes_any_order_within_a_variable(seed, k, n):
+    """``layout_matches``, the check that holds the kernel's tables to
+    ``edge_layout`` on the card: a counting sort in any order within each
+    variable passes; one symbol moved to another variable's range, or an
+    offset off by one, does not."""
+    sim = lt.LTSimulator(k, n, 0.1, 0.5, device="cpu")
+    t = sim.sample_batch(np.random.default_rng(seed), 6)
+    es, ev = t["edge_sym"], t["edge_var"]
+    ip_s, sbv, ip_v = _counting_sort_layout(es, ev, n, k, seed)
+    assert lt_kernel.layout_matches((ip_s, sbv, ip_v), es, ev, n)
+    moved = sbv.clone()
+    j = int(ip_v[0, 1])          # the first edge of variable 1's range
+    moved[0, j] = (moved[0, j] + 1) % n
+    assert not lt_kernel.layout_matches((ip_s, moved, ip_v), es, ev, n)
+    off = ip_v.clone()
+    off[0, 2] += 1
+    assert not lt_kernel.layout_matches((ip_s, sbv, off), es, ev, n)
+
+
 def test_stream_batches_counts_and_determinism():
     k, n = 40, 90
     sim = lt.LTSimulator(k, n, c=0.1, delta=0.5, device="cpu")
