@@ -6,9 +6,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device: a CUDA device must be present (there is no CPU fallback); the
    card's name and power limit as nvidia-smi reports them.
-2. Build: the five kernel sources (``ldpc_decoders_tpu_torch/csrc``:
+2. Build: the seven kernel sources (``ldpc_decoders_tpu_torch/csrc``:
    ``msa_decode.cu``, ``spa_decode.cu``, ``bec_decode.cu``,
-   ``admm_decode.cu``, ``lt_peel.cu``) compile here, in parallel.
+   ``admm_decode.cu``, ``lt_peel.cu``, ``admm_step.cu``, ``mlp_fused.cu``)
+   compile here, in parallel.
 3. Kernels against their plain PyTorch versions on the card, B=4096.
    Tolerance: none — decisions and iteration counts (and the ADMM
    kernel's fractional x) must be bit-equal.
@@ -166,33 +167,58 @@ Phases (any failure exits non-zero and prints no result line):
    the outputs written once over 3.35 TB/s; the kernel's ripples (one,
    plus one per prefix jump) are printed beside it.
 
-7. ADMMA and the plots (``decoders/admma.py``; ADMMA has no kernel of its
-   own: its train mode runs the plain ADMM loop on the card with the exact
-   projection as its z-update, and one Adam step per loop iteration):
+7. ADMMA and the plots (``decoders/admma.py``). On the card ADMMA's loop
+   runs on its own kernels: per loop iteration K1 ``admm_iter_pre`` (the
+   x-update and the rows v), then K2 ``project_rows`` (the exact
+   projection) and K4 ``mlp_train`` (the fused MLP's forward, loss and
+   gradients, then ``torch.optim.Adam``'s update) in train mode, or K4
+   ``mlp_forward`` in eval mode (K2 after the ``apprx`` window), then K3
+   ``admm_iter_post`` (dual update, norms, freeze, the count of the words
+   left); K1-K3 are ``csrc/admm_step.cu``, K4 ``csrc/mlp_fused.cu``. Each
+   main path below runs with those kernels' counts set to 0 just before it
+   and read just after, and with every plain version of them (the plain
+   ADMM loop and its halves, ``project_parity_polytope``, the plain MLP
+   and its autograd pass) patched to raise:
    (a) at the CLI's width (layers [100, 100]) on LDPC(1200,3,6), biAWGN
    2.5 dB, codeword 1, cap 50, B=4096: train mode equal to the ADMM kernel
    ``csrc/admm_decode.cu`` bit for bit in x_hat, iterations and fractional
-   x, its parameters moved; its decode time and peak memory, and per loop
-   iteration the MLP forward, the exact projection and the Adam step
-   (CUDA events on the first iteration's rows); TF32 must be off;
+   x, its parameters moved; its decode time and peak memory. On (a)'s first
+   iteration (z = 0.5, lam = 0, the MLP's seeded start; 2,457,600 rows):
+   K1, K2 and K3 bit-equal to their plain versions, K4's forward within
+   1e-5 abs of the plain MLP, its loss and every gradient within 1e-5
+   relative (norm of the difference over the plain one's) of autograd's,
+   and the same bits on a second run; each kernel's time beside its plain
+   version's, Adam's update, and the whole iteration (PR 10's plain loop:
+   26.317 ms); TF32 must be off;
    (b) offline training: dim 4 [64, 64], 1500 steps of 512, MSE < 5e-3
    against the exact projection on 256 held-out rows; dim 6 [100, 100],
-   2000 steps of 1024, its loss; steps/s of both;
+   2000 steps of 1024 (a main path: K2 and K4), its loss; steps/s of both;
    (c) eval mode with the dim-4 model on the Hamming(7,4) codebook (BSC
    0.05): at least 75% of words, and all of them with ``apprx=3`` and
-   ``iter_cap=500``; the eval-mode rate on (a)'s input with the committed
-   ``cache/model_6-100-100-6.npz``;
+   ``iter_cap=500``; on (a)'s input with the committed
+   ``cache/model_6-100-100-6.npz`` the eval decode's rate, held against
+   the plain route (the plain loop and the plain MLP on the card) on the
+   same input: decisions equal on at least 99.9% of words, the differing
+   words printed;
    (d) the CLI: ``main biawgn 1200_3_6_ldpc ADMMA --train`` and ``... ADMM``
    at the same seed, points (2.75 and 3.0 dB) and ``--max-iter 50``: the
    runner gives both the same pipeline rule and generator draws, so their
    Saver files' tot, wec, wer, bec, ber and iteration histograms must be
-   equal; the ADMMA run launches no kernel, the ADMM run ``admm_decode``
-   (counted in its ``kernels`` entry);
-   (e) the polytope demos' projections on the card equal the CPU's within
-   1e-6, and ``viz.cases HMG`` draws its six figures from
+   equal; the ADMMA run launches K1, K2, K3 and K4's training pass and no
+   ``admm_decode``, the ADMM run ``admm_decode`` (counted in its ``kernels``
+   entry); ``main ... ADMMA`` in eval mode with the committed model
+   (16384 words a point) launches K1, K3 and K4's forward;
+   (e) the polytope demos' projections on the card (K2) equal the CPU's
+   within 1e-6, and ``viz.cases HMG`` draws its six figures from
    ``artifacts/data``; where matplotlib is not installed, each figure's
    curves (files, labels, points) go through the same selection and plot
    functions into a recorder and are checked, and nothing is drawn.
+   The ``kernels`` entries of K1-K4: ``ms`` and ``plain_ms`` on (a)'s first
+   iteration (CUDA events, best of three), ``bound_ms`` from that input's
+   bytes (each plane in and out once) and operations (K2: the rows that
+   need the bracket search, counted; K4: two per multiply-add of its
+   products), ``library_ms`` null (no single PyTorch call computes any of
+   them); ``launches`` over phase 7's main paths and phase 8 (e)'s ranks.
 
 8. Several ranks (``parallel/``: one process per rank over
    ``torch.distributed``). Without a card per rank the ranks share the card
@@ -216,8 +242,9 @@ Phases (any failure exits non-zero and prints no result line):
    MSA 2.0 dB, B = 4096) and, in a spawn of four ranks, on a 2 x 2 batch x
    code mesh (LDPC(1200,3,6) BSC MSA p=0.035), each WER within 6 SE of one
    rank's; (e) ADMMA train, B = 4096, layers [100, 100], 2.5 dB cap 50:
-   the MLPs bit-equal on both ranks and moved from their start, WER within
-   6 SE of one rank; (f) the luby CLI with ``--mesh 2`` at c = 0.03, 128
+   each rank launches K1, K2, K3 and K4's training pass, the MLPs
+   bit-equal on both ranks and moved from their start, WER within 6 SE of
+   one rank; (f) the luby CLI with ``--mesh 2`` at c = 0.03, 128
    sims, ``--batch 64``: ``arr`` equals the rank-ordered concatenation of
    each rank's stream replayed alone, and its mean and std lie within 4 SE
    of the artifact as in phase 6; s/sim at one rank (phase 6) and at two,
@@ -672,9 +699,87 @@ def lt_phase(card: str) -> tuple:
     return dict(entries["0.03"], c=0.03, by_c=entries), launches
 
 
-def admma_phase(card: str) -> int:
+# kernel name of ADMMA's loop -> (its wrapper module, the wrapper's name)
+ADMMA_KERNELS = {"admm_iter_pre": ("admm_step", "admm_iter_pre_cuda"),
+                 "project_rows": ("admm_step", "project_rows_cuda"),
+                 "admm_iter_post": ("admm_step", "admm_iter_post_cuda"),
+                 "mlp_forward": ("mlp_kernel", "mlp_forward_cuda"),
+                 "mlp_train": ("mlp_kernel", "mlp_train_cuda")}
+
+
+def admma_wrappers() -> dict:
+    """Kernel name -> the wrapper whose ``launches`` counts it."""
+    import importlib
+
+    return {k: getattr(importlib.import_module(
+        f"ldpc_decoders_tpu_torch.ops.{mod}"), fn)
+        for k, (mod, fn) in ADMMA_KERNELS.items()}
+
+
+@contextlib.contextmanager
+def plain_forbidden():
+    """While open, the plain versions of ADMMA's kernels (the plain ADMM
+    loop and its halves, the plain projection, the plain MLP and its
+    autograd pass) raise wherever a module of the port binds them."""
+    from ldpc_decoders_tpu_torch.ops import admm_kernel, mlp_kernel, projection
+
+    plain = (admm_kernel.admm_decode_plain, admm_kernel.admm_iter_pre_plain,
+             admm_kernel.admm_iter_post_plain,
+             projection.project_parity_polytope,
+             mlp_kernel.mlp_forward_plain, mlp_kernel.mlp_train_plain)
+    saved = []
+    for mod in list(sys.modules.values()):
+        if not getattr(mod, "__name__", "").startswith(
+                "ldpc_decoders_tpu_torch"):
+            continue
+        for name, val in list(vars(mod).items()):
+            if any(val is f for f in plain):
+                def forbidden(*args, _name=name, **kw):
+                    raise RuntimeError(f"the card route called the plain "
+                                       f"{_name}")
+                saved.append((mod, name, val))
+                setattr(mod, name, forbidden)
+    try:
+        yield
+    finally:
+        for mod, name, val in saved:
+            setattr(mod, name, val)
+
+
+@contextlib.contextmanager
+def counted(launches: dict, label: str, need=()):
+    """Runs one main path with ADMMA's kernel counts set to 0 just before
+    it, adds the counts read just after to ``launches``, and fails unless
+    every kernel in ``need`` launched."""
+    wrappers = admma_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    yield
+    got = {k: w.launches for k, w in wrappers.items()}
+    for k in need:
+        if got[k] < 1:
+            fail(f"{label} did not launch {k}")
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"launches {label}: " + ", ".join(f"{k} {n}" for k, n in
+                                             got.items()), flush=True)
+
+
+def mlp_flops(sizes, rows: int, train: bool) -> int:
+    """Multiply-adds as two operations: the forward's products, and in
+    training the weight gradients' and the hidden gradients' (none for
+    the input)."""
+    prods = [a * b for a, b in zip(sizes[:-1], sizes[1:])]
+    n = sum(prods)
+    if train:
+        n = 3 * n - prods[0]
+    return 2 * rows * n
+
+
+def admma_phase(card: str) -> tuple:
     """Phase 7, ADMMA and the plots. Returns the ``admm_decode`` launches
-    of the ADMM CLI run in (d)."""
+    of the ADMM CLI run in (d), and per kernel of ADMMA's loop its launches
+    on the phase's main paths and its ``kernels``-line numbers."""
     import numpy as np
     import torch
 
@@ -683,7 +788,7 @@ def admma_phase(card: str) -> int:
     from ldpc_decoders_tpu_torch.codes import get_code
     from ldpc_decoders_tpu_torch.decoders import admma
     from ldpc_decoders_tpu_torch.decoders.admm import ADMMDecoder
-    from ldpc_decoders_tpu_torch.ops import admm_kernel
+    from ldpc_decoders_tpu_torch.ops import admm_kernel, admm_step, mlp_kernel
     from ldpc_decoders_tpu_torch.ops.projection import (
         project_parity_polytope,
     )
@@ -705,37 +810,42 @@ def admma_phase(card: str) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps, out
 
+    def best_ms(fn, reps=5):
+        fn()
+        return min(events(fn, reps)[0] for _ in range(3))
+
     code = get_code(FLAG)
+    g_flag = code.graph
     gen = torch.Generator(device=dev).manual_seed(77)
     x = torch.ones((B_CHECK, code.get_n()), dtype=torch.int32, device=dev)
     llr = CHANNELS["biawgn"].llr(CHANNELS["biawgn"].send(x, 2.5, gen), 2.5)
     kw = dict(mu=3.0, eps=1e-5, max_iter=ADMMA_CAP)
+    launches = {}
+    need_train = ("admm_iter_pre", "project_rows", "admm_iter_post",
+                  "mlp_train")
+    need_eval = ("admm_iter_pre", "admm_iter_post", "mlp_forward")
 
     with tempfile.TemporaryDirectory() as cache:
-        # (a) train mode == the ADMM kernel, bit for bit.
-        ref = ADMMDecoder(code.graph, device=dev, **kw)
-        want = admm_kernel.admm_decode_cuda(llr, ref.tables,
-                                            n_edge=code.graph.n_edge, **kw)
-        got, rows = {}, []
+        # (a) train mode == the ADMM kernel, bit for bit, on the kernels.
+        ref = ADMMDecoder(g_flag, device=dev, **kw)
+        t = ref.tables
+        want = admm_kernel.admm_decode_cuda(llr, t, n_edge=g_flag.n_edge,
+                                            **kw)
+        got = {}
         for pseudo in (False, True):
-            dec = admma.ADMMADecoder(code.graph, layers=ADMMA_LAYERS,
+            dec = admma.ADMMADecoder(g_flag, layers=ADMMA_LAYERS,
                                      train=True, allow_pseudo=pseudo,
                                      cache_dir=cache, device=dev, **kw)
             w0 = dec.mlp.w1.detach().clone()
-            z_update = dec._z_update
-
-            def keep_rows(it, v, _z=z_update):
-                if it == 0:
-                    rows.append(v)
-                return _z(it, v)
-
-            dec._z_update = keep_rows
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            got[pseudo] = dec.decode(llr)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
+            with plain_forbidden(), counted(
+                    launches, f"admma train decode (pseudo={pseudo})",
+                    need_train):
+                t0 = time.perf_counter()
+                got[pseudo] = dec.decode(llr)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
             if torch.equal(w0, dec.mlp.w1):
                 fail("ADMMA train mode did not move its parameters")
@@ -747,8 +857,7 @@ def admma_phase(card: str) -> int:
             fail("ADMMA train mode != the admm_decode kernel at "
                  f"{ADMMA_LAYERS}, B={B_CHECK}")
         n_loop = int(iters.max()) + (int(iters.max()) < ADMMA_CAP)
-        rows_b = B_CHECK * code.graph.n_chk
-        act_gb = rows_b * max(ADMMA_LAYERS) * 4 / 1e9
+        rows_b = B_CHECK * g_flag.n_chk
         print(f"check admma train == admm_decode kernel, {FLAG} biawgn 2.5 dB "
               f"cap {ADMMA_CAP} layers {ADMMA_LAYERS}: B={B_CHECK} x_hat, "
               f"iters and fractional x bit-equal; mean iterations "
@@ -756,38 +865,158 @@ def admma_phase(card: str) -> int:
               f"steps) {n_loop}; wer "
               f"{float((x_hat != 1).any(dim=1).float().mean()):.5f}; decode "
               f"{secs:.3f} s = {B_CHECK / secs:.1f} cw/s; peak memory "
-              f"{peak / 2**30:.3f} GiB ({rows_b} rows; one hidden "
-              f"activation {act_gb:.3f} GB) | {card}", flush=True)
+              f"{peak / 2**30:.3f} GiB ({rows_b} rows) | {card}", flush=True)
 
-        # ms per loop iteration: the MLP forward, the exact projection and
-        # the Adam step (forward, backward, update), on the first
-        # iteration's rows; the rest of the iteration is the plain loop.
-        v = rows[0]
-        flat = v.reshape(-1, v.shape[-1])
-        mlp = admma.mlp_init(v.shape[-1], ADMMA_LAYERS, device=dev)
-        opt = admma.make_adam(mlp, 1e-3)
-        target = project_parity_polytope(v).reshape(flat.shape)
+        # Each kernel of the loop against its plain version on (a)'s
+        # first iteration: z = 0.5, lam = 0, the MLP's seeded start.
+        st = admm_step.step_tables(t)
+        C, Dc = t.chk_var.shape
+        inv_mu = admm_kernel._inv_mu(3.0)
+        thresh = admm_kernel._threshold(1e-5, g_flag.n_edge)
+        inv_mu_t = torch.tensor(inv_mu, device=dev)
+        z = torch.full((B_CHECK, C, Dc), 0.5, device=dev)
+        lam = torch.zeros_like(z)
+        g = llr * inv_mu_t
+        x0 = torch.zeros_like(g)
+        upd0 = torch.zeros(B_CHECK, dtype=torch.int32, device=dev)
+        done0 = torch.zeros(B_CHECK, dtype=torch.bool, device=dev)
+        mlp = admma.mlp_init(Dc, ADMMA_LAYERS, device=dev)
+        params = list(mlp.parameters())
+        sizes = mlp_kernel.sizes_of(params)
 
-        def forward():
+        x_new, x_e, v = admm_kernel.admm_iter_pre_plain(z, lam, g, t,
+                                                        inv_mu_t)
+        rows = v.reshape(-1, Dc)
+        target = project_parity_polytope(v)
+        trows = target.reshape(-1, Dc)
+
+        def pre_k():
+            return admm_step.admm_iter_pre_cuda(z, lam, g, st, inv_mu)
+
+        def post_p():
+            return admm_kernel.admm_iter_post_plain(
+                x0, z, lam, x_new, x_e, target, upd0, done0, t,
+                torch.tensor(3.0, device=dev), torch.tensor(thresh,
+                                                            device=dev))
+
+        post_state = [a.clone() for a in (x0, z, lam, upd0, done0)]
+
+        def post_k():
+            s = post_state
+            return admm_step.admm_iter_post_cuda(
+                s[0], s[1], s[2], x_new, None, target, s[3], s[4], st, 3.0,
+                thresh)
+
+        def fwd_p():
             with torch.no_grad():
-                return mlp(flat)
+                return mlp_kernel.mlp_forward_plain(params, rows)
 
-        split = {}
-        for name, fn in (("mlp_forward", forward),
-                         ("exact_projection",
-                          lambda: project_parity_polytope(v)),
-                         ("adam_step",
-                          lambda: admma.adam_step(mlp, opt, flat, target))):
-            fn()
-            split[name] = min(events(fn)[0] for _ in range(3))
+        err = {}
+        xk, vk = pre_k()
+        err["admm_iter_pre"] = max(float((xk - x_new).abs().max()),
+                                   float((vk - v).abs().max()))
+        err["project_rows"] = float(
+            (admm_step.project_rows_cuda(v) - target).abs().max())
+        err["admm_iter_post"] = max(float((a.float() - b.float()).abs().max())
+                                    for a, b in zip(post_k(), post_p()))
+        for k in ("admm_iter_pre", "project_rows", "admm_iter_post"):
+            if err[k]:
+                fail(f"{k} kernel != plain on (a)'s first iteration "
+                     f"(max |diff| {err[k]})")
+        out_k = mlp_kernel.mlp_forward_cuda(params, rows)
+        err["mlp_forward"] = float((out_k - fwd_p()).abs().max())
+        loss_k, grads_k = mlp_kernel.mlp_train_cuda(params, rows, trows)
+        loss_p, grads_p = mlp_kernel.mlp_train_plain(params, rows, trows)
+        rel = [float((a - b).norm() / b.norm())
+               for a, b in zip(grads_k, grads_p)]
+        rel_loss = abs(float(loss_k) - float(loss_p)) / float(loss_p)
+        err["mlp_train"] = max(
+            [float((a - b).abs().max()) for a, b in zip(grads_k, grads_p)]
+            + [abs(float(loss_k) - float(loss_p))])
+        loss2, grads2 = mlp_kernel.mlp_train_cuda(params, rows, trows)
+        same = torch.equal(loss_k, loss2) and all(
+            torch.equal(a, b) for a, b in zip(grads_k, grads2))
+        print(f"check admma kernels on (a)'s first iteration, {rows_b} rows: "
+              "admm_iter_pre, project_rows, admm_iter_post bit-equal to "
+              f"their plain versions; mlp_forward max |diff| "
+              f"{err['mlp_forward']:.3g} (bar 1e-5); mlp_train loss rel "
+              f"{rel_loss:.3g}, gradients rel " + ", ".join(
+                  f"{r:.3g}" for r in rel) + " (bar 1e-5), max |diff| "
+              f"{err['mlp_train']:.3g}; the same bits on a second run: "
+              f"{same}", flush=True)
+        if not (err["mlp_forward"] <= 1e-5 and rel_loss <= 1e-5
+                and max(rel) <= 1e-5 and same):
+            fail("the fused MLP kernel is out of its tolerance against the "
+                 "plain MLP, or differs between two runs")
+
+        # Times per loop iteration: each kernel beside its plain version,
+        # and Adam's update.
+        opt = admma.make_adam(mlp, 1e-3)
+
+        def adam_update():
+            for p, gr in zip(params, grads_k):
+                p.grad = gr
+            opt.step()
+
+        timed = {
+            "admm_iter_pre": (pre_k, lambda: admm_kernel.admm_iter_pre_plain(
+                z, lam, g, t, inv_mu_t)),
+            "project_rows": (lambda: admm_step.project_rows_cuda(v),
+                             lambda: project_parity_polytope(v)),
+            "mlp_forward": (lambda: mlp_kernel.mlp_forward_cuda(params, rows),
+                            fwd_p),
+            "mlp_train": (
+                lambda: mlp_kernel.mlp_train_cuda(params, rows, trows),
+                lambda: mlp_kernel.mlp_train_plain(params, rows, trows)),
+            "admm_iter_post": (post_k, post_p),
+        }
+        ms = {}
+        for k, (kern, plain) in timed.items():
+            ms[k] = (best_ms(kern), best_ms(plain, reps=1))
+        ms_adam = best_ms(adam_update)
+        # Bounds: bytes in and out once (3.35 TB/s) and operations (67
+        # TFLOP/s), for this input.
+        plane = 4 * rows_b * Dc
+        vec = 4 * B_CHECK * code.get_n()
+        clip = v.clamp(0.0, 1.0)
+        bracket = int((target != clip).any(dim=-1).sum())
+        proj_ops = (rows_b * (Dc * (3 * (Dc - 1) + 7) + 4)
+                    + bracket * (2 * Dc * (9 + 5 * Dc) + 6 + 3 * Dc))
+        n_par = sum(p.numel() for p in params)
+        work = {  # (bytes, operations)
+            "admm_iter_pre": (3 * plane + 2 * vec, 5 * rows_b * Dc
+                              + 3 * B_CHECK * code.get_n()),
+            "project_rows": (2 * plane, proj_ops),
+            "admm_iter_post": (5 * plane + 2 * vec, 8 * rows_b * Dc),
+            "mlp_forward": (2 * plane + 4 * n_par,
+                            mlp_flops(sizes, rows_b, False)),
+            "mlp_train": (2 * plane + 8 * n_par,
+                          mlp_flops(sizes, rows_b, True)),
+        }
+        entries = {}
+        for k, (nb, nops) in work.items():
+            bound = {"bytes": 1e3 * nb / HBM_BYTES_PER_S,
+                     "operations": 1e3 * nops / F32_OPS_PER_S}
+            by = max(bound, key=bound.get)
+            entries[k] = {"ms": ms[k][0], "plain_ms": ms[k][1],
+                          "bound_ms": bound[by], "bound_by": by,
+                          "library_ms": None}
+            print(f"timing admma {k} at B={B_CHECK} ({rows_b} rows): kernel "
+                  f"{ms[k][0]:.4f} ms vs plain {ms[k][1]:.4f}; bound "
+                  f"{bound[by]:.4f} ms by {by} (bytes {bound['bytes']:.4f}, "
+                  f"operations {bound['operations']:.4f}) | {card}",
+                  flush=True)
         per_it = 1e3 * secs / n_loop
-        print(f"admma ms per loop iteration at B={B_CHECK} (train): "
-              + ", ".join(f"{k} {t:.3f}" for k, t in split.items())
-              + f", the whole iteration {per_it:.3f} (other "
-              f"{per_it - split['exact_projection'] - split['adam_step']:.3f})"
-              f" | {card}", flush=True)
+        parts = ("admm_iter_pre", "project_rows", "mlp_train",
+                 "admm_iter_post")
+        print(f"admma ms per loop iteration at B={B_CHECK} (train, kernels): "
+              + ", ".join(f"{k} {ms[k][0]:.3f}" for k in parts)
+              + f", Adam update {ms_adam:.3f}; their sum "
+              f"{sum(ms[k][0] for k in parts) + ms_adam:.3f}, the whole "
+              f"iteration {per_it:.3f} (PR 10, plain: 26.317); bracket rows "
+              f"{bracket} of {rows_b} | {card}", flush=True)
 
-        # (b) offline training on the card.
+        # (b) offline training on the card, through K2 and K4.
         t0 = time.perf_counter()
         mlp4, loss4 = admma.train_offline(4, [64, 64], steps=1500, batch=512,
                                           cache_dir=cache, log_every=0,
@@ -803,11 +1032,13 @@ def admma_phase(card: str) -> int:
         if not mse < 5e-3:
             fail(f"offline training at dim 4 reached MSE {mse} >= 5e-3")
         steps6 = 2000
-        t0 = time.perf_counter()
-        _, loss6 = admma.train_offline(6, ADMMA_LAYERS, steps=steps6,
-                                       batch=1024, cache_dir=cache,
-                                       log_every=0, device=dev)
-        secs6 = time.perf_counter() - t0
+        with plain_forbidden(), counted(launches, "admma train_offline",
+                                        ("project_rows", "mlp_train")):
+            t0 = time.perf_counter()
+            _, loss6 = admma.train_offline(6, ADMMA_LAYERS, steps=steps6,
+                                           batch=1024, cache_dir=cache,
+                                           log_every=0, device=dev)
+            secs6 = time.perf_counter() - t0
         print(f"admma offline dim 6 {ADMMA_LAYERS}, {steps6} steps of 1024: "
               f"last loss {loss6:.6f}, {steps6 / secs6:.1f} steps/s | {card}",
               flush=True)
@@ -821,60 +1052,101 @@ def admma_phase(card: str) -> int:
                              (3, dict(max_iter=-1, iter_cap=500))):
             dec = admma.ADMMADecoder(ham.graph, layers=[64, 64], apprx=apprx,
                                      cache_dir=cache, device=dev, **extra)
-            ok = float((dec.decode(g_ham)[0] == cb).all(dim=1).float().mean())
+            with plain_forbidden(), counted(
+                    launches, f"admma eval hamming apprx={apprx}",
+                    need_eval + (("project_rows",) if apprx > 0 else ())):
+                ok = float((dec.decode(g_ham)[0] == cb).all(dim=1)
+                           .float().mean())
             print(f"admma eval hamming codebook apprx={apprx}: "
                   f"{ok:.4f} of words decoded", flush=True)
             if (apprx < 0 and ok < 0.75) or (apprx > 0 and ok < 1.0):
                 fail(f"ADMMA eval mode (apprx={apprx}) decoded {ok} of the "
                      "Hamming(7,4) codebook")
 
-        # ADMMA eval-mode rate on the flagship with the committed dim-6
-        # model (the MLP serves every iteration).
-        dec = admma.ADMMADecoder(code.graph, layers=ADMMA_LAYERS,
-                                 cache_dir=os.path.join(ROOT, "cache"),
-                                 device=dev, **kw)
-        dec.decode(llr[:64])
+    # ADMMA eval mode on the flagship with the committed dim-6 model (the
+    # MLP serves every iteration): its rate, and its decisions against the
+    # plain route's on the same input.
+    dec = admma.ADMMADecoder(g_flag, layers=ADMMA_LAYERS,
+                             cache_dir=os.path.join(ROOT, "cache"),
+                             device=dev, **kw)
+    dec.decode(llr[:64])
+    with plain_forbidden(), counted(launches, "admma eval decode",
+                                    need_eval):
         secs_e, (xe, ie) = events(lambda: dec.decode(llr))
-        secs_e /= 1e3
-        print(f"admma eval {FLAG} biawgn 2.5 dB cap {ADMMA_CAP}, committed "
-              f"model: decode {secs_e:.3f} s = {B_CHECK / secs_e:.1f} cw/s, "
-              f"mean iterations {float(ie.float().mean()):.3f}, wer "
-              f"{float((xe != 1).any(dim=1).float().mean()):.5f} | {card}",
-              flush=True)
+    secs_e /= 1e3
+    eval_params = list(dec.mlp.parameters())
+
+    def plain_mlp(it, v_rows):
+        with torch.no_grad():
+            return mlp_kernel.mlp_forward_plain(
+                eval_params, v_rows.reshape(-1, Dc)).reshape(v_rows.shape)
+
+    secs_p, (xp, ip, _) = events(lambda: admm_kernel.admm_decode_plain(
+        llr, dec.tables, n_edge=g_flag.n_edge, z_update=plain_mlp, **kw))
+    secs_p /= 1e3
+    n_diff = int((xp != xe).any(dim=1).sum())
+    n_it = int((ip != ie).sum())
+    print(f"admma eval {FLAG} biawgn 2.5 dB cap {ADMMA_CAP}, committed "
+          f"model: kernels {secs_e:.3f} s = {B_CHECK / secs_e:.1f} cw/s, "
+          f"plain route {secs_p:.3f} s = {B_CHECK / secs_p:.1f} cw/s; words "
+          f"whose decisions differ {n_diff} of {B_CHECK} (bar: at most "
+          f"{B_CHECK // 1000}), iteration counts differ on {n_it}; mean "
+          f"iterations {float(ie.float().mean()):.3f}, wer "
+          f"{float((xe != 1).any(dim=1).float().mean()):.5f} | {card}",
+          flush=True)
+    if n_diff > B_CHECK // 1000:
+        fail(f"ADMMA eval on the kernels differs from the plain route on "
+             f"{n_diff} of {B_CHECK} words")
 
     # (d) the CLI end to end: ADMMA --train and ADMM at the same seed,
     # points and cap. Both run the runner's one pipeline rule and the same
     # generator draws, and train mode decodes as the kernel does, so every
-    # tally of the Saver files must agree.
+    # tally of the Saver files must agree. The ADMMA runs (train, and eval
+    # with the committed model) go through ADMMA's kernels alone.
     saved, n_admm = {}, 0
     with tempfile.TemporaryDirectory() as tmp:
-        for dec_name in ("ADMMA", "ADMM"):
-            argv = ["biawgn", FLAG, dec_name, "--codeword", "1", "--max-iter",
-                    str(ADMMA_CAP), "--min-wec", "200", "--params", "2.75",
-                    "3.0", "--seed", "5", "--console", "--data_dir", tmp,
-                    "--cache_dir", os.path.join(tmp, "cache")]
+        for dec_name in ("ADMMA", "ADMM", "ADMMA eval"):
+            argv = ["biawgn", FLAG, dec_name.split()[0], "--codeword", "1",
+                    "--max-iter", str(ADMMA_CAP), "--min-wec", "200",
+                    "--params", "2.75", "3.0", "--seed", "5", "--console",
+                    "--data_dir", os.path.join(tmp, dec_name)]
+            if dec_name == "ADMMA eval":
+                argv += ["--cache_dir", os.path.join(ROOT, "cache"),
+                         "--max-words", str(4 * 4096)]
+            else:
+                argv += ["--cache_dir", os.path.join(tmp, "cache")]
             if dec_name == "ADMMA":
                 argv.append("--train")
             admm_kernel.admm_decode_cuda.launches = 0
-            t0 = time.perf_counter()
-            res = cli.main(argv)
-            secs = time.perf_counter() - t0
+            ctx = (contextlib.nullcontext() if dec_name == "ADMM" else
+                   plain_forbidden())
+            need = (need_train if dec_name == "ADMMA" else
+                    need_eval if dec_name == "ADMMA eval" else ())
+            with ctx, counted(launches, f"cli {dec_name}", need):
+                t0 = time.perf_counter()
+                res = cli.main(argv)
+                secs = time.perf_counter() - t0
             n = admm_kernel.admm_decode_cuda.launches
             if dec_name == "ADMM":
                 n_admm = n
             elif n:
-                fail("the ADMMA CLI run launched the ADMM kernel")
-            name = (f"biawgn-{FLAG}-{dec_name}-1-200-3.0-1e-05-{ADMMA_CAP}-"
-                    "False" + ("-[100, 100]" if dec_name == "ADMMA" else "")
-                    + ".json")
-            with open(os.path.join(tmp, name)) as fp:
-                saved[dec_name] = json.load(fp)
+                fail(f"the {dec_name} CLI run launched the ADMM kernel")
             print(f"cli {' '.join(argv[:3])} --max-iter {ADMMA_CAP}"
                   f"{' --train' if dec_name == 'ADMMA' else ''}: {secs:.3f} s, "
                   f"admm_decode launches={n}, " + "; ".join(
                       f"{p}: wec {r['wec']} / tot {r['tot']}, bec {r['bec']}, "
                       f"{r['words_per_sec']:.1f} cw/s" for p, r in res.items())
                   + f" | {card}", flush=True)
+            if dec_name == "ADMMA eval":
+                if not all(0 < r["tot"] and 0 <= r["wer"] <= 1
+                           for r in res.values()):
+                    fail("the ADMMA eval CLI run gave no tallies")
+                continue
+            name = (f"biawgn-{FLAG}-{dec_name}-1-200-3.0-1e-05-{ADMMA_CAP}-"
+                    "False" + ("-[100, 100]" if dec_name == "ADMMA" else "")
+                    + ".json")
+            with open(os.path.join(tmp, dec_name, name)) as fp:
+                saved[dec_name] = json.load(fp)
     for key in ("tot", "wec", "wer", "bec", "ber", "dec"):
         if saved["ADMMA"][key] != saved["ADMM"][key]:
             fail(f"ADMMA --train and ADMM CLI Saver files differ in {key}")
@@ -883,7 +1155,9 @@ def admma_phase(card: str) -> int:
     print("cli ADMMA --train == ADMM: tot, wec, wer, bec, ber and the "
           "iteration histograms equal at both points", flush=True)
     plot_checks()
-    return n_admm
+    for k, e in entries.items():
+        e["max_abs_err"] = err[k]
+    return n_admm, launches, entries
 
 
 def lt_cli_rank(argv) -> dict:
@@ -1144,10 +1418,11 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
               res["code_1d"][0]["results"][p],
               MonteCarloRunner(code_1d).run()[p])
 
-    # (e) ADMMA: data-parallel training.
+    # (e) ADMMA: data-parallel training, on ADMMA's kernels in each rank.
     e = res["admma"]
-    if strip(e[0]["results"]) != strip(e[1]["results"]):
-        fail("mesh admma: the ranks' results differ")
+    for kname in ("admm_iter_pre", "project_rows", "admm_iter_post",
+                  "mlp_train"):
+        count(e, kname, "admma")
     mlps = [o["mlp"] for o in e]
     start = mlp_init(6, ADMMA_LAYERS, 0).state_dict()
     for k in mlps[0]:
@@ -1379,7 +1654,7 @@ def main() -> None:
     # -- 2. build all kernels at once ----------------------------------------
     t0 = time.time()
     sources = ("msa_decode", "spa_decode", "bec_decode", "admm_decode",
-               "lt_peel")
+               "lt_peel", "admm_step", "mlp_fused")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(_build.load_library, s) for s in sources]:
             try:
@@ -2469,7 +2744,13 @@ def main() -> None:
     max_err["lt_peel"] = 0      # phase 6 fails on any difference
 
     # -- 7. ADMMA and the plots ----------------------------------------------
-    launches["admm_decode"] += admma_phase(card)
+    n_admm, admma_launches, admma_timed = admma_phase(card)
+    launches["admm_decode"] += n_admm
+    for k, entry in admma_timed.items():
+        knames.append(k)
+        max_err[k] = entry.pop("max_abs_err")
+        timed[k] = entry
+        launches[k] = admma_launches.get(k, 0)
 
     # -- 8. several ranks ------------------------------------------------------
     for kname, n in mesh_phase(card, timed["lt_peel"]["by_c"]["0.03"]).items():
@@ -2489,6 +2770,11 @@ def main() -> None:
             fail(f"no main path launched {k}")
         if k == "lt_peel":      # no Pallas kernel: the JAX sparse engine
             src, replaces = "lt_peel.cu", "ldpc_decoders_tpu/fountain/lt.py:290"
+        elif k.startswith("mlp_"):  # no Pallas kernel: the JAX MLP's XLA
+            src = "mlp_fused.cu"
+            replaces = "ldpc_decoders_tpu/decoders/admma.py:56"
+        elif k in ADMMA_KERNELS:    # _admm_core's iteration, split
+            src, replaces = "admm_step.cu", pallas + "1219"
         else:
             src, line = sources[k.removesuffix("_caps")]
             replaces = pallas + line

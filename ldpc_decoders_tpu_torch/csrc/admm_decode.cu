@@ -27,7 +27,9 @@
 //     max(v or 1-v, 0)) by T(beta) = f.clip(v - beta*f) against r and
 //     interpolated linearly, guarded by t_lo - t_hi > 0. T depends only on
 //     the candidate's value, so lo, hi, T(lo) and T(hi) are tracked in one
-//     pass over the candidates (the TPU kernel folds twice to save VMEM);
+//     pass over the candidates (the TPU kernel folds twice to save VMEM).
+//     The projection and the norms' block fold are in admm_row.cuh, which
+//     admm_step.cu (ADMMA's loop, split around the z-update) shares;
 //   - dual: lam += mu * (x_e - z_new);
 //   - the word is done when both ||x_e - z_new||^2 and ||z - z_new||^2 are
 //     below eps^2 * nnz(H): its CTA leaves the loop (the Pallas kernel's
@@ -93,38 +95,20 @@
 // them); a cap of 40 registers per thread (ptxas takes 41 to 46 at Dc = 6,
 // handed out as 48; the cap spills on padded rows).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "admm_row.cuh"
 
 namespace {
 
-// Widest check row a thread keeps in registers (the codes of the
-// repository have check degree <= 6).
-constexpr int kMaxD = 8;
+using admm_row::clip01;
+using admm_row::fold_blocks;
+using admm_row::kAll;
+using admm_row::kMaxD;
+using admm_row::kRowBlock;
+using admm_row::project_row;
+
 constexpr int kMaxThreads = 1024;
-constexpr int kRowBlock = 8;        // rows per block of the norm sums
-constexpr unsigned kAll = 0xffffffffu;
 // The variable degree with an x-update of its own (see kDv).
 constexpr int kRegularDv = 3;
-
-__device__ __forceinline__ float clip01(float v) { return __saturatef(v); }
-
-// sum[n] over the block sums blk[n][0..nb), n = 0, 1: lane j adds blocks
-// j, j + 32, ... in ascending order, then the lanes are halved.
-__device__ __forceinline__ void fold_blocks(const float* blk, int nb,
-                                            int lane, float tot[2]) {
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-    const float* w = blk + n * nb;
-    float acc = lane < nb ? w[lane] : 0.f;
-    for (int b = lane + 32; b < nb; b += 32) acc = __fadd_rn(acc, w[b]);
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      acc = __fadd_rn(acc, __shfl_xor_sync(kAll, acc, s));
-    }
-    tot[n] = acc;
-  }
-}
 
 // llr [B, V] f32; chk_var [Dc][C]: variable of check slot (c, d), -1 if
 // padded; var_slot [Dv][V]: index d*C + c of variable slot (v, s) in the
@@ -229,75 +213,8 @@ admm_decode_kernel(const float* __restrict__ llr,
           v[d] = 0.f;
         }
       }
-      // Cube clip and its slot-order sum; r = even floor.
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) s = __fadd_rn(s, clip01(v[d]));
-      const int r_i = static_cast<int>(floorf(s)) & ~1;
-      const float r = static_cast<float>(r_i);
-      // Facet normal from the descending rank (ties by index): f = +1
-      // where rank <= r, else -1. Of two real slots e < d exactly one
-      // outranks the other: e where v[e] >= v[d], else d.
-      int rank[kD];
-#pragma unroll
-      for (int d = 0; d < kD; ++d) rank[d] = 0;
-#pragma unroll
-      for (int d = 1; d < kD; ++d) {
-#pragma unroll
-        for (int e = 0; e < d; ++e) {
-          if (!kFull && !((real >> d) & (real >> e) & 1u)) continue;
-          const int e_first = v[e] >= v[d];
-          rank[d] += e_first;
-          rank[e] += 1 - e_first;
-        }
-      }
-      // f * x below is an exact product (f is +-1 or 0), so a fused
-      // multiply-add with it rounds once, as the sum alone does.
       float f[kD];
-#pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        f[d] = rank[d] <= r_i ? 1.f : -1.f;
-        if (!kFull && !((real >> d) & 1u)) f[d] = 0.f;
-      }
-      float fz = 0.f;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) fz = __fmaf_rn(f[d], clip01(v[d]), fz);
-      const bool easy = fz <= r;
-      float beta = 0.f;
-      if (!easy) {
-        // beta = 0 is the first candidate: T(0) = fz > r. T is a function
-        // of the candidate's value alone, so equal candidates bring equal
-        // T and the fold needs no rule for ties.
-        float lo = 0.f, t_lo = fz, hi = CUDART_INF_F, t_hi = CUDART_INF_F;
-#pragma unroll
-        for (int k = 0; k < 2 * kD; ++k) {
-          const int d = k >> 1;
-          // top: v - 1 and v; else: -v and 1 - v.
-          const float fv = __fmul_rn(f[d], v[d]);
-          const float step = (k & 1) ? (f[d] > 0.f ? 0.f : 1.f)
-                                     : (f[d] > 0.f ? -1.f : 0.f);
-          float cand = fmaxf(__fadd_rn(fv, step), 0.f);
-          if (!kFull && !((real >> d) & 1u)) cand = 0.f;
-          float t = 0.f;
-#pragma unroll
-          for (int e = 0; e < kD; ++e) {
-            t = __fmaf_rn(f[e], clip01(__fmaf_rn(-f[e], cand, v[e])), t);
-          }
-          const bool up = t >= r && cand > lo;
-          lo = up ? cand : lo;
-          t_lo = up ? t : t_lo;
-          const bool down = t <= r && cand < hi;
-          hi = down ? cand : hi;
-          t_hi = down ? t : t_hi;
-        }
-        const float denom = __fsub_rn(t_lo, t_hi);
-        beta = lo;
-        if (denom > 0.f) {
-          beta = __fadd_rn(
-              lo, __fdiv_rn(__fmul_rn(__fsub_rn(t_lo, r), __fsub_rn(hi, lo)),
-                            denom));
-        }
-      }
+      const float beta = project_row<kD, kFull>(v, real, f);
       float row1 = 0.f, row2 = 0.f;
 #pragma unroll
       for (int d = 0; d < kD; ++d) {

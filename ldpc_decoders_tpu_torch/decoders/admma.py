@@ -9,8 +9,8 @@ in ``<cache_dir>/model_<dim>-<h...>-<dim>.npz`` under the JAX package's
 keys ``w{i}`` [n_in, n_out] and ``b{i}`` [n_out]: a checkpoint written by
 either package loads in the other.
 
-``ADMMADecoder.decode`` runs the port's one plain ADMM loop
-(``ops/admm_kernel.py:admm_decode_plain``) with its z-update replaced:
+``ADMMADecoder.decode`` runs the port's one ADMM loop
+(``ops/admm_kernel.py:admm_loop``) with its z-update replaced:
 
 - ``train=True``: the exact projection of every row; one Adam step on
   mean((mlp(rows) - target)^2) over the rows of every word, frozen ones
@@ -20,24 +20,31 @@ either package loads in the other.
   bit;
 - ``apprx`` > 0: the MLP for iterations 0..apprx inclusive, the exact
   projection after them;
-- otherwise the MLP, under ``torch.no_grad()``.
+- otherwise the MLP.
 
 The loop stops when every word is done or at the cap, so it takes one
 Adam step per loop iteration, as the JAX package's ``while_loop`` does.
 
+On a card every part of an iteration is a hand-written kernel
+(``ops/admm_step.py``, ``ops/mlp_kernel.py``): the x-update and the rows
+v (``csrc/admm_step.cu`` K1), the exact projection (K2, ``project_rows``),
+the MLP's forward, or its forward, loss and gradients
+(``csrc/mlp_fused.cu`` K4), the dual update, norms, freeze and count of
+the words left (K3). Only ``torch.optim.Adam``'s update of the parameters,
+the host's stop test (one 4-byte read an iteration) and, under a mesh, the
+gradients' all-reduce stay PyTorch. On the CPU every part is its plain
+version. The JAX package runs ADMMA in XLA: it has no Pallas kernel.
+
 Under a mesh (``set_mesh``, which the harness calls) training is data
 parallel over its ``batch`` axis, as the JAX package's ``pmean`` / ``pmin``
 make it: each rank's loss is the mean over its own rows, the gradients are
-summed over the axis between ``backward()`` and ``step()`` and divided by
-the ranks, and the loop stops when every word of every rank is done, so
+summed over the axis between the gradient pass and ``step()`` and divided
+by the ranks, and the loop stops when every word of every rank is done, so
 every rank takes the same Adam steps and the replicated MLPs stay equal bit
 for bit. Only rank 0 writes a checkpoint.
 
-The MLP runs in true float32: nothing in the package enables TF32.
-
-ADMMA has no kernel of its own, on the TPU either: the JAX package runs it
-in XLA, and its MLP is plain [rows, D] x [D, H] products. Here they are
-``torch.matmul``; on a card the loop runs as plain PyTorch on the device.
+The MLP runs in true float32: nothing in the package enables TF32, and the
+fused kernel uses no tensor cores.
 
 Usage (offline trainer):
     python -m ldpc_decoders_tpu_torch.decoders.admma 6 --layers 100 100 \\
@@ -54,9 +61,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ldpc_decoders_tpu_torch.ops.admm_kernel import admm_decode_plain
+from ldpc_decoders_tpu_torch.ops.admm_step import (
+    admm_decode_steps,
+    project_rows,
+)
 from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, bp_tables
-from ldpc_decoders_tpu_torch.ops.projection import project_parity_polytope
+from ldpc_decoders_tpu_torch.ops.mlp_kernel import (
+    mlp_forward,
+    mlp_forward_plain,
+    mlp_train,
+)
 from ldpc_decoders_tpu_torch.parallel.mesh import is_coordinator
 from ldpc_decoders_tpu_torch.utils.math import pseudo_to_cw_tensor
 
@@ -81,11 +95,9 @@ class MLP(nn.Module):
                 torch.zeros((n_out,), device=device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        last = len(self.sizes) - 2
-        for i in range(last):
-            x = torch.relu(x @ getattr(self, f"w{i}") + getattr(self, f"b{i}"))
-        return torch.sigmoid(x @ getattr(self, f"w{last}")
-                             + getattr(self, f"b{last}"))
+        """The plain version (``ops/mlp_kernel.py:mlp_forward_plain``),
+        which autograd follows."""
+        return mlp_forward_plain(list(self.parameters()), x)
 
 
 def mlp_init(dim: int, layers: Sequence[int], seed: int = 0,
@@ -156,15 +168,17 @@ def make_adam(mlp: MLP, learning_rate: float) -> torch.optim.Adam:
 
 def adam_step(mlp: MLP, opt: torch.optim.Adam, rows: torch.Tensor,
               target: torch.Tensor, mesh=None) -> torch.Tensor:
-    """One step on mean((mlp(rows) - target)^2); returns the loss. With a
-    ``mesh`` the gradients are averaged over its ``batch`` axis first (one
-    sum of all of them, on the main group)."""
-    loss = torch.mean((mlp(rows) - target) ** 2)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
+    """One step on mean((mlp(rows) - target)^2); returns the loss. The loss
+    and gradients come from ``mlp_train`` (the fused kernel on a card,
+    autograd on the CPU) and land in ``p.grad``. With a ``mesh`` the
+    gradients are averaged over its ``batch`` axis first (one sum of all of
+    them, on the main group)."""
+    params = list(mlp.parameters())
+    loss, grads = mlp_train(params, rows, target)
+    for p, g in zip(params, grads):
+        p.grad = g
     n = mesh.width("batch") if mesh is not None else 1
     if n > 1:
-        grads = [p.grad for p in mlp.parameters()]
         flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
                                "batch") / n
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
@@ -233,7 +247,8 @@ class ADMMADecoder:
         return path
 
     def _exact(self, v: torch.Tensor) -> torch.Tensor:
-        return project_parity_polytope(v, mask=self.tables.cmask)
+        # The check degree is regular: every row is full, no mask.
+        return project_rows(v)
 
     def _z_update(self, it: int, v: torch.Tensor) -> torch.Tensor:
         """v [B, C, D] -> z [B, C, D] at loop iteration ``it``."""
@@ -244,16 +259,16 @@ class ADMMADecoder:
             return target
         if 0 < self.switch < it:
             return self._exact(v)
-        with torch.no_grad():
-            return self.mlp(v.reshape(-1, self.dim)).reshape(v.shape)
+        return mlp_forward(list(self.mlp.parameters()),
+                           v.reshape(-1, self.dim)).reshape(v.shape)
 
-    def _all_done(self, done: torch.Tensor) -> bool:
+    def _all_done(self, left: torch.Tensor) -> bool:
         if self.train and self.mesh is not None:
-            return self.mesh.all_true(done.all(), "batch")
-        return bool(done.all())
+            return self.mesh.all_true(left == 0, "batch")
+        return int(left) == 0
 
     def decode(self, llr: torch.Tensor) -> tuple:
-        x_hat, iters, x = admm_decode_plain(
+        x_hat, iters, x = admm_decode_steps(
             llr.to(torch.float32).contiguous(), self.tables, mu=self.mu,
             eps=self.eps, max_iter=self.iter_cap, n_edge=self.graph.n_edge,
             z_update=self._z_update, all_done=self._all_done)
@@ -280,7 +295,7 @@ def train_offline(dim: int, layers, steps: int = 10000, batch: int = 1024,
     loss = None
     for i in range(steps):
         x = torch.rand((batch, dim), generator=gen, device=device)
-        loss = adam_step(mlp, opt, x, project_parity_polytope(x))
+        loss = adam_step(mlp, opt, x, project_rows(x))
         if log_every and i % log_every == 0:
             print(f"step {i} loss {float(loss):.6f}")
     save_params(ckpt_path(cache_dir, dim, list(layers)), mlp)

@@ -8,6 +8,12 @@ runs ``admm_decode_plain``; a CUDA tensor launches the hand-written kernel
 ``_admm_kernel_fac``) or raises. There is no fallback from the kernel to
 the plain version.
 
+The plain version is one loop, ``admm_loop``, over the two halves of an
+iteration split around the z-update (``admm_iter_pre_plain``,
+``admm_iter_post_plain``): ADMMA (``decoders/admma.py``) puts its own
+z-update between them, and ``ops/admm_step.py`` runs the same loop over the
+halves' kernels on a card.
+
 Semantics (the JAX package's ``decoders/admm.py``), per codeword, with
 gamma the LLRs, z and lam one value per edge slot and x per variable,
 starting from z = 0.5, lam = 0:
@@ -150,70 +156,106 @@ def admm_geometry(C: int, V: int, Dc: int) -> Geometry:
     return make_geometry(C, V, Dc, row_threads(C, warps))
 
 
-def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
-                      eps: float, max_iter: int, n_edge: int,
-                      z_update: Optional[Callable] = None,
-                      all_done: Optional[Callable] = None) -> tuple:
-    """The plain PyTorch version: llr [B, V] f32 -> (x_hat [B, V] int32,
-    iters [B] int32, x [B, V] f32, the fractional solution). Batched over
-    [B, C, Dc] tensors, words frozen with ``torch.where``; the host loop
-    stops when every word is done, so it runs as many z-updates as the
-    slowest word needs.
+def admm_iter_pre_plain(z: torch.Tensor, lam: torch.Tensor, g: torch.Tensor,
+                        t: BPTables, inv_mu: torch.Tensor) -> tuple:
+    """An iteration up to the z-update: z, lam [B, C, Dc], g = gamma/mu
+    [B, V] -> (x_new [B, V], x_e [B, C, Dc], v = x_e + lam/mu [B, C, Dc]),
+    for every word."""
+    B = z.shape[0]
+    C, Dc = t.chk_var.shape
+    lam_mu = lam * inv_mu
+    u = (z - lam_mu).reshape(B, C * Dc)
+    acc = torch.zeros_like(g)
+    for s in range(t.var_slot.shape[1]):
+        acc = acc + torch.where(t.vmask[:, s], u[:, t.var_slot[:, s]], 0.0)
+    var_deg = t.vmask.sum(dim=-1).to(torch.float32)
+    x_new = ((acc - g) / var_deg).clamp(0.0, 1.0)
+    x_e = torch.where(t.cmask, x_new[:, t.chk_var], 0.0)
+    return x_new, x_e, x_e + lam_mu
 
-    ``z_update(it, v)`` replaces the z-update, the projection of the rows
-    v = x_e + lam/mu [B, C, Dc] onto the parity polytope, for every word,
-    frozen ones included; ``it`` counts the loop's iterations from 0.
-    ADMMA (``decoders/admma.py``) supplies a learned projection there.
-    Without it the loop is the kernel's arithmetic, bit for bit.
-    ``all_done(done)`` is the loop's stop test (default: every word of
-    ``done`` [B] is done); data-parallel training makes it global, so
-    every rank runs as many z-updates."""
+
+def admm_iter_post_plain(x, z, lam, x_new, x_e, z_new, updates, done,
+                         t: BPTables, mu: torch.Tensor,
+                         thresh: torch.Tensor) -> tuple:
+    """The iteration after the z-update: the dual update, the two squared
+    norms, the convergence test and the freeze. Returns the new (x, z,
+    lam, updates, done, left), ``left`` the 0-dim count of the words not
+    yet done; the inputs are not changed."""
+    e1 = x_e - z_new
+    e2 = z - z_new
+    lam_new = lam + mu * e1
+    d1 = word_sum(fold_slots(e1 * e1))
+    d2 = word_sum(fold_slots(e2 * e2))
+    close = (d1 < thresh) & (d2 < thresh)
+    active = ~done
+    done = done | (active & close)
+    return (torch.where(active[:, None], x_new, x),
+            torch.where(active[:, None, None], z_new, z),
+            torch.where(active[:, None, None], lam_new, lam),
+            updates + active.to(torch.int32), done,
+            (~done).sum(dtype=torch.int32))
+
+
+def admm_loop(llr: torch.Tensor, t: BPTables, *, mu: float, eps: float,
+              max_iter: int, n_edge: int, pre: Callable, post: Callable,
+              z_update: Callable, all_done: Optional[Callable] = None
+              ) -> tuple:
+    """The one ADMM loop, over the two halves of an iteration: llr [B, V]
+    f32 -> (x_hat [B, V] int32, iters [B] int32, x [B, V] f32, the
+    fractional solution). Per iteration ``pre`` (``admm_iter_pre_plain``'s
+    signature), ``z_update(it, v)`` (v [B, C, Dc]; ``it`` counts the loop's
+    iterations from 0), then ``post`` (``admm_iter_post_plain``'s). The
+    state is the plain version's: z, lam [B, C, Dc] row-major, x [B, V],
+    words frozen once done. ``all_done(left)``, given the 0-dim count of
+    the words not yet done, is the host's stop test (default: none is
+    left); data-parallel training makes it global, so every rank runs as
+    many iterations. The loop stops when it is true or at ``max_iter``, so
+    it runs as many z-updates as the slowest word needs."""
     f32 = torch.float32
     dev = llr.device
     B, V = llr.shape
     C, Dc = t.chk_var.shape
-    Dv = t.var_slot.shape[1]
     mu_t = torch.full((), float(mu), dtype=f32, device=dev)
     inv_mu = torch.full((), _inv_mu(mu), dtype=f32, device=dev)
     thresh = torch.full((), _threshold(eps, n_edge), dtype=f32, device=dev)
-    var_deg = t.vmask.sum(dim=-1).to(f32)
     g = llr.to(f32) * inv_mu
     z = torch.where(t.cmask, 0.5, 0.0).to(f32).expand(B, C, Dc).contiguous()
     lam = torch.zeros((B, C, Dc), dtype=f32, device=dev)
     x = torch.zeros((B, V), dtype=f32, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     updates = torch.zeros(B, dtype=torch.int32, device=dev)
-    it = 0
+    left = torch.full((), B, dtype=torch.int32, device=dev)
     if all_done is None:
-        def all_done(d):
-            return bool(d.all())
-    while it < max_iter and not all_done(done):
-        lam_mu = lam * inv_mu
-        u = (z - lam_mu).reshape(B, C * Dc)
-        acc = torch.zeros((B, V), dtype=f32, device=dev)
-        for s in range(Dv):
-            acc = acc + torch.where(t.vmask[:, s], u[:, t.var_slot[:, s]],
-                                    0.0)
-        x_new = ((acc - g) / var_deg).clamp(0.0, 1.0)
-        x_e = torch.where(t.cmask, x_new[:, t.chk_var], 0.0)
-        v = x_e + lam_mu
-        z_new = (project_parity_polytope(v, mask=t.cmask) if z_update is None
-                 else z_update(it, v))
-        e1 = x_e - z_new
-        e2 = z - z_new
-        lam_new = lam + mu_t * e1
-        d1 = word_sum(fold_slots(e1 * e1))
-        d2 = word_sum(fold_slots(e2 * e2))
-        close = (d1 < thresh) & (d2 < thresh)
-        active = ~done
-        x = torch.where(active[:, None], x_new, x)
-        z = torch.where(active[:, None, None], z_new, z)
-        lam = torch.where(active[:, None, None], lam_new, lam)
-        updates += active.to(torch.int32)
-        done = done | (active & close)
+        def all_done(n):
+            return int(n) == 0
+    it = 0
+    while it < max_iter and not all_done(left):
+        x_new, x_e, v = pre(z, lam, g, t, inv_mu)
+        z_new = z_update(it, v)
+        x, z, lam, updates, done, left = post(
+            x, z, lam, x_new, x_e, z_new, updates, done, t, mu_t, thresh)
         it += 1
     iters = torch.where(done, updates - 1, updates)
     return (x > 0.5).to(torch.int32), iters, x
+
+
+def admm_decode_plain(llr: torch.Tensor, t: BPTables, *, mu: float,
+                      eps: float, max_iter: int, n_edge: int,
+                      z_update: Optional[Callable] = None,
+                      all_done: Optional[Callable] = None) -> tuple:
+    """The plain PyTorch version: ``admm_loop`` over the plain halves of an
+    iteration, batched over [B, C, Dc] tensors, words frozen with
+    ``torch.where``. ``z_update(it, v)`` replaces the exact projection of
+    the rows v onto the parity polytope (for every word, frozen ones
+    included); without it the loop is the kernel's arithmetic, bit for
+    bit."""
+    if z_update is None:
+        def z_update(it, v):
+            return project_parity_polytope(v, mask=t.cmask)
+    return admm_loop(llr, t, mu=mu, eps=eps, max_iter=max_iter,
+                     n_edge=n_edge, pre=admm_iter_pre_plain,
+                     post=admm_iter_post_plain, z_update=z_update,
+                     all_done=all_done)
 
 
 def admm_decode_cuda(llr: torch.Tensor, t: BPTables, *, mu: float,

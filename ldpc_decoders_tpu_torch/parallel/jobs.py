@@ -31,8 +31,10 @@ def kernel_launches() -> dict:
     """This process's launch counts of every kernel wrapper."""
     from ldpc_decoders_tpu_torch.ops import (
         admm_kernel,
+        admm_step,
         bec_kernel,
         lt_kernel,
+        mlp_kernel,
         msa_kernel,
         spa_kernel,
     )
@@ -48,7 +50,12 @@ def kernel_launches() -> dict:
             "bec_decode": bec.launches,
             "bec_decode_caps": bec.launches_caps,
             "admm_decode": admm_kernel.admm_decode_cuda.launches,
-            "lt_peel": lt_kernel.lt_peel_cuda.launches}
+            "lt_peel": lt_kernel.lt_peel_cuda.launches,
+            "admm_iter_pre": admm_step.admm_iter_pre_cuda.launches,
+            "project_rows": admm_step.project_rows_cuda.launches,
+            "admm_iter_post": admm_step.admm_iter_post_cuda.launches,
+            "mlp_forward": mlp_kernel.mlp_forward_cuda.launches,
+            "mlp_train": mlp_kernel.mlp_train_cuda.launches}
 
 
 def _facts(out: dict, launches0: dict) -> dict:

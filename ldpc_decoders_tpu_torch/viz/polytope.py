@@ -1,8 +1,9 @@
 """Parity-polytope projection demos in 2D and 3D (counterpart of
 ``ldpc_decoders_tpu.viz.polytope``): random points and their projections
 onto PP_2 (a segment) and PP_3 (a tetrahedron), drawn to files. The
-projections are the port's batched ``project_parity_polytope``, on the
-card unless the caller asks for the CPU.
+projections are the port's ``project_rows``: on the card (the default) the
+projection kernel of ``csrc/admm_step.cu``, on the CPU, where the caller
+asks for it, the plain ``project_parity_polytope``.
 
 Usage:
     python -m ldpc_decoders_tpu_torch.viz.polytope 3 --points 60 \\
@@ -16,7 +17,7 @@ import argparse
 import numpy as np
 import torch
 
-from ldpc_decoders_tpu_torch.ops.projection import project_parity_polytope
+from ldpc_decoders_tpu_torch.ops.admm_step import project_rows
 
 # Spread of the demo points around 0.5, per dimension (the JAX package's).
 _SIGMA = {2: 0.8, 3: 0.7}
@@ -37,7 +38,7 @@ def demo_points(dim: int, n_points: int, seed: int = 0,
     on ``device``; both numpy [n_points, dim]."""
     rng = np.random.default_rng(seed)
     v = rng.normal(0.5, _SIGMA[dim], (n_points, dim)).astype(np.float32)
-    z = project_parity_polytope(torch.as_tensor(v, device=device))
+    z = project_rows(torch.as_tensor(v, device=device))
     return v, z.cpu().numpy()
 
 

@@ -24,6 +24,21 @@ what has a tolerance:
 - npz checkpoints load in both directions, the forward within 1e-6;
 - the offline trainer reaches the JAX test's own bar, MSE < 5e-3 against
   the exact projection at dim 4, [64, 64], 1500 steps of 512 rows.
+
+The plain versions of the card's kernels (``ops/admm_step.py``,
+``ops/mlp_kernel.py``), on the CPU:
+
+- the loop split around the z-update (``admm_iter_pre_plain``,
+  ``admm_iter_post_plain``, looped by ``admm_loop``) equals the loop as
+  it was before the split bit for bit, with the exact and an MLP
+  z-update, on Hamming(7,4) and a (3,6)-regular code of 36 variables;
+- the plain training pass (``mlp_train_plain``) against ``jax.grad`` of
+  the JAX loss: loss and gradients within 1e-5 relative per tensor;
+- ``project_rows`` on a CPU tensor is ``project_parity_polytope``, bit for
+  bit; a CPU decode, Adam step or offline training loads no kernel
+  library; the kernels' wrappers refuse CPU tensors; the fused MLP's
+  shared-memory plan and its refusal; the kernel build's hash covers the
+  headers a source includes.
 """
 
 import json
@@ -400,3 +415,266 @@ def test_cli_admma_train_writes_jax_named_json(tmp_path):
     assert list(saved) == list(want)        # the JAX Saver schema
     assert saved["wec"]["0.05"] == res[0.05]["wec"] >= 5
     assert len(saved["dec"]["0.05"]["iter"]) == 2000
+
+
+# ----------------------------------------------------------------------
+# The loop split around the z-update; the plain steps of the kernels
+# ----------------------------------------------------------------------
+
+def _pre_split_decode(llr, t, *, mu, eps, max_iter, n_edge, z_update):
+    """``admm_decode_plain`` as it was before its iteration was split into
+    ``admm_iter_pre_plain`` and ``admm_iter_post_plain``: one loop body."""
+    from ldpc_decoders_tpu_torch.ops import admm_kernel as ak
+    from ldpc_decoders_tpu_torch.ops.projection import fold_slots
+
+    f32 = torch.float32
+    B, V = llr.shape
+    C, Dc = t.chk_var.shape
+    mu_t = torch.full((), float(mu), dtype=f32)
+    inv_mu = torch.full((), ak._inv_mu(mu), dtype=f32)
+    thresh = torch.full((), ak._threshold(eps, n_edge), dtype=f32)
+    var_deg = t.vmask.sum(dim=-1).to(f32)
+    g = llr.to(f32) * inv_mu
+    z = torch.where(t.cmask, 0.5, 0.0).to(f32).expand(B, C, Dc).contiguous()
+    lam = torch.zeros((B, C, Dc), dtype=f32)
+    x = torch.zeros((B, V), dtype=f32)
+    done = torch.zeros(B, dtype=torch.bool)
+    updates = torch.zeros(B, dtype=torch.int32)
+    it = 0
+    while it < max_iter and not bool(done.all()):
+        lam_mu = lam * inv_mu
+        u = (z - lam_mu).reshape(B, C * Dc)
+        acc = torch.zeros((B, V), dtype=f32)
+        for s in range(t.var_slot.shape[1]):
+            acc = acc + torch.where(t.vmask[:, s], u[:, t.var_slot[:, s]],
+                                    0.0)
+        x_new = ((acc - g) / var_deg).clamp(0.0, 1.0)
+        x_e = torch.where(t.cmask, x_new[:, t.chk_var], 0.0)
+        v = x_e + lam_mu
+        z_new = z_update(it, v)
+        e1 = x_e - z_new
+        e2 = z - z_new
+        lam_new = lam + mu_t * e1
+        d1 = ak.word_sum(fold_slots(e1 * e1))
+        d2 = ak.word_sum(fold_slots(e2 * e2))
+        close = (d1 < thresh) & (d2 < thresh)
+        active = ~done
+        x = torch.where(active[:, None], x_new, x)
+        z = torch.where(active[:, None, None], z_new, z)
+        lam = torch.where(active[:, None, None], lam_new, lam)
+        updates += active.to(torch.int32)
+        done = done | (active & close)
+        it += 1
+    iters = torch.where(done, updates - 1, updates)
+    return (x > 0.5).to(torch.int32), iters, x
+
+
+def _reg36_graph():
+    """A (3,6)-regular code of 36 variables and 18 checks."""
+    from ldpc_decoders_tpu_torch.codes.ensembles import rand_reg_ldpc
+    from ldpc_decoders_tpu_torch.ops.graph import TannerGraph
+
+    H = rand_reg_ldpc(36, 3, 6, rng=np.random.default_rng(5))
+    return TannerGraph.from_parity_mtx(H)
+
+
+def _awgn_llr(n, batch, snr_db, seed):
+    rng = np.random.default_rng(seed)
+    nv = 10.0 ** (-snr_db / 10.0)
+    y = 1.0 + np.sqrt(nv) * rng.standard_normal((batch, n))
+    return torch.from_numpy((-2.0 * y / nv).astype(np.float32))
+
+
+@pytest.mark.parametrize("graph_name", ["7_4_hamming", "reg36"])
+@pytest.mark.parametrize("z_kind", ["exact", "mlp"])
+def test_split_loop_equals_pre_split_loop(graph_name, z_kind):
+    """The plain halves of an iteration, looped by ``admm_loop``, give the
+    pre-split loop's outputs bit for bit, with the exact projection and
+    with an MLP (a seeded, untrained one: its rows differ from the
+    exact projection's) as the z-update."""
+    from ldpc_decoders_tpu_torch.ops import admm_kernel as ak
+    from ldpc_decoders_tpu_torch.ops.graph import bp_tables
+
+    graph = (get_code("7_4_hamming").graph if graph_name == "7_4_hamming"
+             else _reg36_graph())
+    t = bp_tables(graph)
+    dim = graph.max_chk_deg
+    llr = _awgn_llr(graph.n_var, 48, 2.0, seed=11)
+    if z_kind == "exact":
+        def z_update(it, v):
+            return project_parity_polytope(v, mask=t.cmask)
+    else:
+        mlp = admma.mlp_init(dim, [8, 8], seed=3)
+
+        def z_update(it, v):
+            with torch.no_grad():
+                return mlp(v.reshape(-1, dim)).reshape(v.shape)
+    kw = dict(mu=3.0, eps=1e-5, max_iter=60, n_edge=graph.n_edge,
+              z_update=z_update)
+    want = _pre_split_decode(llr, t, **kw)
+    got = ak.admm_decode_plain(llr, t, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if z_kind == "exact":       # some words converge before the cap
+        assert int(want[1].min()) < 59
+    # The halves leave their inputs alone and count the words left.
+    z = torch.full((48,) + tuple(t.chk_var.shape), 0.5)
+    lam = torch.zeros_like(z)
+    g = llr * ak._inv_mu(3.0)
+    inv_mu = torch.tensor(ak._inv_mu(3.0))
+    x_new, x_e, v = ak.admm_iter_pre_plain(z, lam, g, t, inv_mu)
+    state = (torch.zeros_like(x_new), z, lam, torch.zeros(48, dtype=torch.int32),
+             torch.arange(48) % 2 == 0)
+    copies = [s.clone() for s in state]
+    out = ak.admm_iter_post_plain(*state[:3], x_new, x_e, z_update(0, v),
+                                  *state[3:], t, torch.tensor(3.0),
+                                  torch.tensor(1e9))
+    for a, b in zip(state, copies):
+        assert torch.equal(a, b)
+    assert out[4].all() and int(out[5]) == 0       # all close at 1e9
+    assert torch.equal(out[3], (torch.arange(48) % 2).to(torch.int32))
+
+
+@pytest.mark.parametrize("layers", [[8, 8], [100, 100]])
+def test_plain_train_step_equals_jax_grad(layers):
+    """The fused MLP kernel's plain version (``mlp_train_plain``: the MLP's
+    forward and autograd) against ``jax.grad`` of the JAX loss, 64 rows:
+    the loss and each gradient within 1e-5 relative (the norm of the
+    difference over the norm of the JAX gradient, per tensor)."""
+    from ldpc_decoders_tpu_torch.ops import mlp_kernel
+
+    rng = np.random.default_rng(9)
+    rows = rng.normal(0.5, 0.8, (64, 6)).astype(np.float32)
+    target = np.array(jax_projection.project_parity_polytope(
+        jnp.asarray(rows)))
+    jparams = jax_admma.mlp_init(jax.random.PRNGKey(4), 6, layers)
+
+    def loss_fn(p):
+        return jnp.mean((jax_admma.mlp_apply(p, jnp.asarray(rows))
+                         - jnp.asarray(target)) ** 2)
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(jparams)
+    mlp = admma.params_from_jax(
+        [{k: np.asarray(v) for k, v in p.items()} for p in jparams])
+    params = list(mlp.parameters())
+    loss, grads = mlp_kernel.mlp_train(params, torch.from_numpy(rows),
+                                       torch.from_numpy(target))
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    want = [np.asarray(g[k]) for g in jgrads for k in ("w", "b")]
+    assert len(grads) == len(want)
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape
+        rel = np.linalg.norm(got.numpy() - w) / np.linalg.norm(w)
+        assert rel < 1e-5, rel
+    # The forward route on the CPU is the MLP's own forward, bit for bit.
+    with torch.no_grad():
+        assert torch.equal(mlp_kernel.mlp_forward(params,
+                                                  torch.from_numpy(rows)),
+                           mlp(torch.from_numpy(rows)))
+
+
+@pytest.mark.parametrize("dim", [2, 3, 4, 6, 8])
+def test_project_rows_on_cpu_is_the_plain_projection(dim):
+    from ldpc_decoders_tpu_torch.ops.admm_step import project_rows
+
+    rng = np.random.default_rng(dim)
+    v = torch.from_numpy(rng.normal(0.5, 0.8, (5, 40, dim))
+                         .astype(np.float32))
+    assert torch.equal(project_rows(v), project_parity_polytope(v))
+    mask = torch.from_numpy(rng.random((40, dim)) < 0.8)
+    assert torch.equal(project_rows(v, mask),
+                       project_parity_polytope(v, mask=mask))
+
+
+def test_cpu_routes_load_no_kernel_library(tmp_path, monkeypatch):
+    """ADMMA on the CPU (train, eval, apprx), its Adam step and the offline
+    trainer run the plain versions and never build or load a kernel."""
+    import sys
+
+    from ldpc_decoders_tpu_torch.ops import _build
+
+    def no_library(name):
+        raise AssertionError(f"a CPU route loaded the {name} kernel library")
+
+    real = _build.load_library
+    for mod in list(sys.modules.values()):
+        if (getattr(mod, "__name__", "").startswith("ldpc_decoders_tpu_torch")
+                and getattr(mod, "load_library", None) is real):
+            monkeypatch.setattr(mod, "load_library", no_library)
+    graph = get_code("7_4_hamming").graph
+    llr = torch.from_numpy(_hamming_llr())
+    train = admma.ADMMADecoder(graph, layers=[8], train=True, max_iter=20,
+                               cache_dir=str(tmp_path), device="cpu")
+    train.decode(llr)
+    train.save()
+    for apprx in (-1, 2):
+        admma.ADMMADecoder(graph, layers=[8], apprx=apprx, max_iter=20,
+                           cache_dir=str(tmp_path), device="cpu").decode(llr)
+    admma.train_offline(4, [8], steps=3, batch=16, cache_dir=str(tmp_path),
+                        log_every=0, device="cpu")
+
+
+def test_mlp_plan_shrinks_the_tile_then_refuses():
+    from ldpc_decoders_tpu_torch.ops import mlp_kernel
+
+    assert mlp_kernel.mlp_plan([6, 100, 100, 6], False) == (64, 109120)
+    assert mlp_kernel.mlp_plan([6, 100, 100, 6], True) == (64, 214768)
+    # Wider layers take fewer rows per tile before the kernel refuses.
+    assert mlp_kernel.mlp_plan([6, 140, 140, 6], True)[0] == 16
+    assert mlp_kernel.mlp_plan([6, 147, 147, 6], True)[0] == 8
+    with pytest.raises(ValueError, match="smallest row tile, 8 rows"):
+        mlp_kernel.mlp_plan([6, 148, 148, 6], True)
+    assert mlp_kernel.mlp_plan([6, 213, 213, 6], False)[0] == 8
+    with pytest.raises(ValueError, match="too wide"):
+        mlp_kernel.mlp_plan([6, 214, 214, 6], False)
+    with pytest.raises(ValueError, match="layers"):
+        mlp_kernel.mlp_plan([6] * 19, False)
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """Editing a header a kernel source includes renames its build, so the
+    source is rebuilt; a source that does not include it keeps its name."""
+    from ldpc_decoders_tpu_torch.ops import _build
+
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    assert _build.source_files("a") == ["a.cu", "h.cuh", "g.cuh"]
+    before = {n: _build.library_path(n) for n in "ab"}
+    (tmp_path / "g.cuh").write_text("// two\n")
+    assert _build.library_path("a") != before["a"]
+    assert _build.library_path("b") == before["b"]
+    # The port's ADMM kernels include their shared header.
+    monkeypatch.undo()
+    for name in ("admm_decode", "admm_step"):
+        assert "admm_row.cuh" in _build.source_files(name)
+    assert ("-I", _build.CSRC_DIR) == _build.NVCC_FLAGS[-2:]
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """K1-K4's wrappers take CUDA tensors only: a CPU tensor raises before
+    any kernel is built (the routes send CPU tensors to the plain
+    versions)."""
+    from ldpc_decoders_tpu_torch.ops import admm_step, mlp_kernel
+    from ldpc_decoders_tpu_torch.ops.graph import bp_tables
+
+    t = bp_tables(get_code("7_4_hamming").graph)
+    st = admm_step.step_tables(t)
+    z = torch.zeros((2, 3, 4))
+    g = torch.zeros((2, 7))
+    params = list(admma.mlp_init(4, [8]).parameters())
+    rows = torch.zeros((5, 4))
+    calls = [
+        lambda: admm_step.admm_iter_pre_cuda(z, z, g, st, 1 / 3),
+        lambda: admm_step.project_rows_cuda(z),
+        lambda: admm_step.admm_iter_post_cuda(
+            g, z, z, g, None, z, torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, dtype=torch.bool), st, 3.0, 1e-9),
+        lambda: mlp_kernel.mlp_forward_cuda(params, rows),
+        lambda: mlp_kernel.mlp_train_cuda(params, rows, rows),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()

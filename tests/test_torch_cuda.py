@@ -5,13 +5,17 @@ snapshot planes; the LT peel kernel against the plain sparse engine and
 the dense engine (results, resolved sets, recovered bits), its own edge
 layout against ``edge_layout``, with its tables in shared and in device
 memory, and no PyTorch sort, bincount or gather on its route; ADMMA's
-train mode against the ADMM kernel.
+train mode against the ADMM kernel; ADMMA's step kernels (the split
+iteration K1-K3 of ``csrc/admm_step.cu`` bit for bit, the fused MLP
+``csrc/mlp_fused.cu`` within 1e-5) against their plain versions.
 Marked ``cuda`` and skipped without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -28,6 +32,9 @@ from ldpc_decoders_tpu_torch.ops import (  # noqa: E402
     spa_kernel,
 )
 from ldpc_decoders_tpu_torch.ops.graph import TannerGraph, bp_tables  # noqa: E402
+
+
+COMMITTED_CACHE = os.path.join(os.path.dirname(__file__), "..", "cache")
 
 
 @pytest.fixture
@@ -678,9 +685,10 @@ def test_lt_kernel_refusals(cuda):
                                                  2.5)])
 def test_admma_train_mode_equals_admm_kernel(cuda, tmp_path, name, channel,
                                              param):
-    """ADMMA's train mode decodes with the exact projection through the plain
-    ADMM loop on the card: it must equal the ADMM kernel bit for bit, and
-    launch no kernel itself."""
+    """ADMMA's train mode decodes with the exact projection through the
+    split loop on the card (K1, K2, K3, and K4's training pass for the Adam
+    step): it must equal the whole-loop ADMM kernel bit for bit, launch each
+    of those kernels once per loop iteration, and not the ADMM kernel."""
     from ldpc_decoders_tpu_torch.decoders.admma import ADMMADecoder
     from ldpc_decoders_tpu_torch.utils.math import pseudo_to_cw_tensor
 
@@ -694,7 +702,9 @@ def test_admma_train_mode_equals_admm_kernel(cuda, tmp_path, name, channel,
     want = admm_kernel.admm_decode_cuda(llr, t, n_edge=code.graph.n_edge,
                                         **kw)
     before = admm_kernel.admm_decode_cuda.launches
+    counters = _step_counters()
     for pseudo in (False, True):
+        start = [c.launches for c in counters]
         dec = ADMMADecoder(code.graph, train=True, layers=[32],
                            allow_pseudo=pseudo, cache_dir=str(tmp_path),
                            device=cuda, **kw)
@@ -705,4 +715,176 @@ def test_admma_train_mode_equals_admm_kernel(cuda, tmp_path, name, channel,
         assert torch.equal(x_hat, pseudo_to_cw_tensor(want[2], True)
                            if pseudo else want[0])
         assert not torch.equal(w0, dec.mlp.w0)
+        loops = int(iters.max()) + (int(iters.max()) < 50)
+        assert [c.launches - s0 for c, s0 in zip(counters, start)] == \
+            [loops, loops, loops, 0, loops]
     assert admm_kernel.admm_decode_cuda.launches == before
+
+
+def _step_counters():
+    """K1, K2, K3, K4 forward, K4 train."""
+    from ldpc_decoders_tpu_torch.ops import admm_step, mlp_kernel
+
+    return [admm_step.admm_iter_pre_cuda, admm_step.project_rows_cuda,
+            admm_step.admm_iter_post_cuda, mlp_kernel.mlp_forward_cuda,
+            mlp_kernel.mlp_train_cuda]
+
+
+def _step_state(name, batch, cuda, seed):
+    """Seeded ADMM state on the card: (t, step tables, z, lam, g)."""
+    from ldpc_decoders_tpu_torch.ops import admm_step
+
+    t = bp_tables(get_code(name).graph.to(cuda))
+    C, Dc = t.chk_var.shape
+    V = t.var_slot.shape[0]
+    rng = np.random.default_rng(seed)
+    cm = t.cmask.cpu().numpy()
+
+    def dev(a):
+        return torch.as_tensor(a.astype(np.float32), device=cuda)
+
+    z = dev(np.where(cm, rng.random((batch, C, Dc)), 0.0))
+    lam = dev(np.where(cm, rng.normal(0.0, 0.3, (batch, C, Dc)), 0.0))
+    g = dev(rng.normal(0.0, 2.0, (batch, V)))
+    return t, admm_step.step_tables(t), z, lam, g
+
+
+STEP_CASES = [(name, batch) for name in ("1200_3_6_ldpc", "7_4_hamming",
+                                         "1200_rho_x5_rand_ldpc_3")
+              for batch in (1, 7, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch", STEP_CASES)
+def test_admm_step_kernels_bit_equal_plain(cuda, name, batch):
+    """K1, K2 and K3 each equal their plain version bit for bit, frozen and
+    converging words included (the irregular code has padded check
+    slots)."""
+    from ldpc_decoders_tpu_torch.ops import admm_step
+    from ldpc_decoders_tpu_torch.ops.admm_kernel import (
+        _inv_mu,
+        _threshold,
+        admm_iter_post_plain,
+        admm_iter_pre_plain,
+    )
+    from ldpc_decoders_tpu_torch.ops.projection import project_parity_polytope
+
+    t, st, z, lam, g = _step_state(name, batch, cuda, seed=batch)
+    inv_mu = _inv_mu(3.0)
+    n_edge = int(t.cmask.sum())
+    counters = _step_counters()
+    start = [c.launches for c in counters]
+    # K1
+    x_new, x_e, v = admm_iter_pre_plain(z, lam, g, t, torch.tensor(
+        inv_mu, device=cuda))
+    xk, vk = admm_step.admm_iter_pre_cuda(z, lam, g, st, inv_mu)
+    torch.cuda.synchronize()
+    assert torch.equal(xk, x_new) and torch.equal(vk, v)
+    # K2, with the mask and without it
+    z_new = project_parity_polytope(v, mask=t.cmask)
+    assert torch.equal(admm_step.project_rows_cuda(v, t.cmask), z_new)
+    assert torch.equal(admm_step.project_rows_cuda(v),
+                       project_parity_polytope(v))
+    # K3: every third word at a fixed point (it converges now), every
+    # fourth already frozen.
+    words = torch.arange(batch, device=cuda)
+    fixed = (words % 3 == 0)[:, None, None]
+    z_new = torch.where(fixed, x_e, z_new)
+    z = torch.where(fixed, x_e, z)
+    done = words % 4 == 1
+    updates = (words * 7 % 13).to(torch.int32)
+    state = (torch.rand(x_new.shape, device=cuda), z, lam, updates, done)
+    mu_t = torch.tensor(3.0, device=cuda)
+    thresh = _threshold(1e-5, n_edge)
+    want = admm_iter_post_plain(*state[:3], x_new, x_e, z_new, *state[3:],
+                                t, mu_t, torch.tensor(thresh, device=cuda))
+    got = admm_step.admm_iter_post_cuda(*[a.clone() for a in state[:3]],
+                                        x_new, None, z_new,
+                                        *[a.clone() for a in state[3:]], st,
+                                        3.0, thresh)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(want[4][0])            # word 0 converged now
+    assert [c.launches - s0 for c, s0 in zip(counters, start)] == \
+        [1, 2, 1, 0, 0]
+
+
+def _mlp_rows(dim, layers, rows, cuda, seed):
+    from ldpc_decoders_tpu_torch.decoders.admma import mlp_init
+    from ldpc_decoders_tpu_torch.ops.admm_step import project_rows
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(0.5, 0.8, (rows, dim)).astype(np.float32),
+                        device=cuda)
+    return list(mlp_init(dim, layers, seed, device=cuda).parameters()), x, \
+        project_rows(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,layers", [(6, [100, 100]), (4, [64, 64]),
+                                        (6, [32]), (5, [12, 40])])
+def test_mlp_kernel_within_tolerance_of_plain(cuda, dim, layers):
+    """K4 against the plain MLP on the card (TF32 off): the forward within
+    1e-5 abs; the training loss and every gradient within 1e-5 relative (the
+    norm of the difference over the plain gradient's norm); and the same
+    bits on a second run."""
+    from ldpc_decoders_tpu_torch.ops import mlp_kernel
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    params, x, target = _mlp_rows(dim, layers, 100_003, cuda, seed=dim)
+    out = mlp_kernel.mlp_forward_cuda(params, x)
+    want = mlp_kernel.mlp_forward_plain(params, x).detach()
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= 1e-5
+    loss, grads = mlp_kernel.mlp_train_cuda(params, x, target)
+    loss_p, grads_p = mlp_kernel.mlp_train_plain(params, x, target)
+    torch.cuda.synchronize()
+    assert abs(float(loss) - float(loss_p)) <= 1e-5 * float(loss_p)
+    for g, w in zip(grads, grads_p):
+        assert g.shape == w.shape
+        assert float((g - w).norm() / w.norm()) < 1e-5
+    loss2, grads2 = mlp_kernel.mlp_train_cuda(params, x, target)
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert torch.equal(out, mlp_kernel.mlp_forward_cuda(params, x))
+
+
+@pytest.mark.cuda
+def test_admma_eval_and_apprx_launch_their_kernels(cuda):
+    """Eval mode runs K4's forward every iteration; apprx=2 runs it for
+    iterations 0..2 and the projection kernel after; neither calls a plain
+    function. The decisions agree with the plain route's on the same
+    input."""
+    from ldpc_decoders_tpu_torch.decoders.admma import ADMMADecoder
+    from ldpc_decoders_tpu_torch.ops import admm_kernel as ak
+    from ldpc_decoders_tpu_torch.ops import mlp_kernel
+
+    code = get_code("1200_3_6_ldpc")
+    llr = _admm_llr(code, "biawgn", 2.5, 256, cuda, seed=5)
+    counters = _step_counters()
+    for apprx in (-1, 2):
+        dec = ADMMADecoder(code.graph, layers=[100, 100], apprx=apprx,
+                           max_iter=30, cache_dir=COMMITTED_CACHE,
+                           device=cuda)
+        start = [c.launches for c in counters]
+        x_hat, iters = dec.decode(llr)
+        torch.cuda.synchronize()
+        loops = int(iters.max()) + (int(iters.max()) < 30)
+        mlp_loops = loops if apprx < 0 else min(loops, apprx + 1)
+        assert [c.launches - s0 for c, s0 in zip(counters, start)] == \
+            [loops, loops - mlp_loops, loops, mlp_loops, 0]
+        params = list(dec.mlp.parameters())
+
+        def plain_z(it, v, _apprx=apprx):
+            if 0 < _apprx < it:
+                return ak.project_parity_polytope(v, mask=dec.tables.cmask)
+            with torch.no_grad():
+                return mlp_kernel.mlp_forward_plain(
+                    params, v.reshape(-1, 6)).reshape(v.shape)
+
+        xp, ip, _ = ak.admm_decode_plain(llr, dec.tables, mu=3.0, eps=1e-5,
+                                         max_iter=30,
+                                         n_edge=code.graph.n_edge,
+                                         z_update=plain_z)
+        assert float((xp != x_hat).any(dim=1).float().mean()) <= 0.01
