@@ -217,8 +217,11 @@ Phases (any failure exits non-zero and prints no result line):
    iteration (CUDA events, best of three), ``bound_ms`` from that input's
    bytes (each plane in and out once) and operations (K2: the rows that
    need the bracket search, counted; K4: two per multiply-add of its
-   products), ``library_ms`` null (no single PyTorch call computes any of
-   them); ``launches`` over phase 7's main paths and phase 8 (e)'s ranks.
+   products, three times over at the tensor cores' TF32 rate, 495
+   TFLOP/s, as its split-TF32 products run, with the float32 FFMA term
+   printed beside it), ``library_ms`` null (no single PyTorch call
+   computes any of them); ``launches`` over phase 7's main paths and phase
+   8 (e)'s ranks.
 
 8. Several ranks (``parallel/``: one process per rank over
    ``torch.distributed``). Without a card per rank the ranks share the card
@@ -263,7 +266,9 @@ The ``kernels`` line gives each kernel's ``bound_ms``: the larger of the
 bytes it must move (input read once, K output planes and the iteration
 counts written once) over 3.35 TB/s, and its operations over 67 TFLOP/s
 (the float32 rate outside the tensor cores; the erasure kernel's integer
-operations are held to the same rate); for the SPA kernels also their
+operations are held to the same rate; K4, whose products run on the
+tensor cores in split TF32, three TF32 products per multiply-add over 495
+TFLOP/s); for the SPA kernels also their
 special-function operations over the card's special-function units (16
 results per SM per clock, at the SM clock ``nvidia-smi`` reports as
 ``clocks.max.sm``). Operations are counted for this run's data: the sum
@@ -313,6 +318,11 @@ CAPS = (1, 2, 3, 6, 10, 40, 100)
 CAP_LABELS = [0, 1, 2, 3, 6, 10, 40, 100]
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# K4 (csrc/mlp_fused.cu) runs its float32 products on the tensor cores in
+# split TF32: three TF32 products per multiply-add, at the card's dense
+# TF32 rate.
+TF32_OPS_PER_S = 495e12
+SPLIT_TF32_PRODUCTS = 3
 # Arithmetic operations of each algorithm per edge and iteration (check
 # pass + variable pass; a transcendental counts as one operation).
 OPS_PER_EDGE_ITER = {"msa_decode": 12, "spa_decode": 20,
@@ -995,8 +1005,13 @@ def admma_phase(card: str) -> tuple:
         }
         entries = {}
         for k, (nb, nops) in work.items():
+            # K4's operations run on the tensor cores, three TF32 products
+            # a multiply-add; the FFMA term is printed beside it.
+            tc = k.startswith("mlp_")
+            ffma = 1e3 * nops / F32_OPS_PER_S
             bound = {"bytes": 1e3 * nb / HBM_BYTES_PER_S,
-                     "operations": 1e3 * nops / F32_OPS_PER_S}
+                     "operations": (1e3 * SPLIT_TF32_PRODUCTS * nops
+                                    / TF32_OPS_PER_S) if tc else ffma}
             by = max(bound, key=bound.get)
             entries[k] = {"ms": ms[k][0], "plain_ms": ms[k][1],
                           "bound_ms": bound[by], "bound_by": by,
@@ -1004,7 +1019,9 @@ def admma_phase(card: str) -> tuple:
             print(f"timing admma {k} at B={B_CHECK} ({rows_b} rows): kernel "
                   f"{ms[k][0]:.4f} ms vs plain {ms[k][1]:.4f}; bound "
                   f"{bound[by]:.4f} ms by {by} (bytes {bound['bytes']:.4f}, "
-                  f"operations {bound['operations']:.4f}) | {card}",
+                  f"operations {bound['operations']:.4f}"
+                  + (f" as split TF32 on the tensor cores; as float32 FFMA "
+                     f"{ffma:.4f}" if tc else "") + f") | {card}",
                   flush=True)
         per_it = 1e3 * secs / n_loop
         parts = ("admm_iter_pre", "project_rows", "mlp_train",

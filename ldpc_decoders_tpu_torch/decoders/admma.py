@@ -43,8 +43,11 @@ by the ranks, and the loop stops when every word of every rank is done, so
 every rank takes the same Adam steps and the replicated MLPs stay equal bit
 for bit. Only rank 0 writes a checkpoint.
 
-The MLP runs in true float32: nothing in the package enables TF32, and the
-fused kernel uses no tensor cores.
+The MLP keeps float32 accuracy: nothing in the package enables TF32 for
+PyTorch's products, so the plain version runs in true float32, and the
+fused kernel runs its products on the tensor cores in split TF32 (each
+operand as two TF32 values, three TF32 products a multiply-add, summed in
+float32), within 1e-5 of the plain version.
 
 Usage (offline trainer):
     python -m ldpc_decoders_tpu_torch.decoders.admma 6 --layers 100 100 \\

@@ -13,19 +13,26 @@ Its parameters are passed as the list ``[w0, b0, w1, b1, ...]``
 
 Both pick the route by the device of ``x``: a CPU tensor runs the plain
 version (the MLP's forward, and autograd's backward for the gradients); a
-CUDA tensor launches ``csrc/mlp_fused.cu`` (true float32 FFMA, no TF32, no
-tensor cores; every activation stays in shared memory) or raises. There
-is no fallback. The kernel and the plain version agree within float32
-rounding, not bit for bit: their sums run in other orders. The kernel gives
+CUDA tensor launches ``csrc/mlp_fused.cu`` or raises. There is no
+fallback. The kernel runs every product on the tensor cores in split TF32:
+each float32 operand is split into two TF32 values, big = tf32(x) and
+small = tf32(x - big), which hold x to 2^-22 of itself, and a multiply-add
+is three TF32 products (small * big, big * small, big * big) summed in
+float32; the bias, the epilogues and the running gradient sums are IEEE
+float32. So the kernel keeps float32 accuracy: the forward within 1e-5 of
+the plain version in true float32, the loss and gradients within 1e-5
+relative. The two agree within that, not bit for bit. The kernel gives
 the same bits on every run (partial gradients per CTA, summed over the
 CTAs in a fixed order by a second launch; no float atomics).
 
 The kernel stages every weight in shared memory beside a tile of rows and,
-in training, every activation and gradient of the tile and the CTA's
-partial gradients. ``mlp_plan`` picks the tile: the largest of
-``TILE_ROWS`` whose layout fits the 227 KB a block can have. A net that does
-not fit at 8 rows is refused; with two hidden layers of
-equal width H and D = 6 that is H > 213 for the forward and H > 147 for
+in training, every activation of the tile (its gradient written in place in
+the backward) and the CTA's partial gradients. ``mlp_plan`` picks the tile:
+the first of ``FORWARD_TILES`` or ``TRAIN_TILES`` whose layout fits the
+227 KB a block can have. The last, 8 rows, drops the row strides' padding
+against bank conflicts, so that every net an earlier layout took still
+fits. A net that does not fit at 8 rows is refused; with two hidden layers
+of equal width H and D = 6 that is H > 224 for the forward and H > 158 for
 training.
 """
 
@@ -41,7 +48,8 @@ import torch
 from ldpc_decoders_tpu_torch.ops._build import load_library
 from ldpc_decoders_tpu_torch.ops.geometry import SMEM_PER_CTA
 
-TILE_ROWS = (64, 32, 16, 8)     # tried in this order
+FORWARD_TILES = (64, 32, 16, 8)     # rows per tile, tried in this order
+TRAIN_TILES = (128, 64, 32, 16, 8)
 MAX_LAYERS = 16                 # weight matrices (kMaxLayers)
 
 
@@ -50,43 +58,62 @@ def _region(n: int) -> int:
     return -(-n // 4) * 4
 
 
+def _ld_a(n: int, pad: bool) -> int:
+    """Row stride of an activation or gradient buffer of n columns
+    (``ld_a``): n rounded up to 8, then, padded, to 8 mod 16."""
+    x = -(-n // 8) * 8
+    return x if not pad or x % 16 == 8 else x + 8
+
+
+def _ld_w(n_out: int, pad: bool) -> int:
+    """Row stride of a staged weight matrix (``ld_w``): n_out rounded up
+    to 8, padded to 4 mod 8."""
+    return -(-n_out // 8) * 8 + (4 if pad else 0)
+
+
+def _ld_g(n_out: int, pad: bool) -> int:
+    """Row stride of the CTA's gradients of a layer (``ld_g``)."""
+    return _ld_a(n_out, pad) if pad else n_out
+
+
 def smem_floats(sizes: Sequence[int], tile: int, train: bool) -> int:
     """The kernel's shared memory in floats (``csrc/mlp_fused.cu:
     smem_floats``), each region a multiple of 4 floats: the staged weights
-    (rows of a multiple of 16 floats) and biases, then in eval two
-    activation buffers of the widest layer; in training every layer's
-    activations (each but the output's with a row of 1s), two gradient
-    buffers of the widest layer but the input, the squared errors, and the
-    CTA's gradients (each layer's w and b in one region). Activation and
-    gradient rows hold tile + 4 floats."""
+    ([n_in][_ld_w(n_out)]) and biases, then in eval two activation buffers
+    of the widest layer; in training every layer's activations, each but
+    the output's with a column of 1s beside it, the squared errors, and the
+    CTA's gradients (each layer's [n_in + 1][_ld_g(n_out)], b as the last
+    row). The strides are padded at tiles of 16 rows or more."""
+    pad = tile >= 16
     pairs = list(zip(sizes[:-1], sizes[1:]))
-    row = tile + 4
-    n = sum(_region(n_in * -(-n_out // 16) * 16) + _region(n_out)
+    n = sum(_region(n_in * _ld_w(n_out, pad)) + _region(n_out)
             for n_in, n_out in pairs)
     if not train:
-        return n + 2 * _region(row * max(sizes))
-    return (n + sum(_region(row * (w + 1)) for w in sizes[:-1])
-            + _region(row * sizes[-1]) + 2 * _region(row * max(sizes[1:]))
+        return n + 2 * _region(tile * _ld_a(max(sizes), pad))
+    return (n + sum(_region(tile * _ld_a(w + 1, pad)) for w in sizes[:-1])
+            + _region(tile * _ld_a(sizes[-1], pad))
             + _region(tile * sizes[-1])
-            + sum(_region((n_in + 1) * n_out) for n_in, n_out in pairs))
+            + sum(_region((n_in + 1) * _ld_g(n_out, pad))
+                  for n_in, n_out in pairs))
 
 
 def mlp_plan(sizes: Sequence[int], train: bool) -> tuple:
     """(tile rows, shared bytes) for a net of these widths, input first;
-    ValueError where not even 8 rows fit."""
+    ValueError where not even the smallest tile fits."""
     sizes = [int(s) for s in sizes]
     if not 1 <= len(sizes) - 1 <= MAX_LAYERS or min(sizes) < 1:
         raise ValueError(f"the fused MLP takes 1 to {MAX_LAYERS} layers of "
                          f"width >= 1, got widths {sizes}")
-    for tile in TILE_ROWS:
+    tiles = TRAIN_TILES if train else FORWARD_TILES
+    for tile in tiles:
         smem = 4 * smem_floats(sizes, tile, train)
         if smem <= SMEM_PER_CTA:
             return tile, smem
     raise ValueError(
         f"MLP widths {sizes} too wide for the fused MLP kernel "
         f"({'train' if train else 'forward'}): at its smallest row tile, "
-        f"{TILE_ROWS[-1]} rows, the staged weights"
-        + (", activations, gradients and partial gradients" if train
+        f"{tiles[-1]} rows, the staged weights"
+        + (", activations and partial gradients" if train
            else " and activations")
         + f" need {smem} bytes of shared memory, a block has {SMEM_PER_CTA}")
 

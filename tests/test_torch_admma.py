@@ -38,9 +38,14 @@ The plain versions of the card's kernels (``ops/admm_step.py``,
   bit; a CPU decode, Adam step or offline training loads no kernel
   library; the kernels' wrappers refuse CPU tensors; the fused MLP's
   shared-memory plan and its refusal; the kernel build's hash covers the
-  headers a source includes.
+  headers a source includes;
+- the fused MLP kernel's split-TF32 products, emulated in plain PyTorch
+  (TF32 rounding on the int32 view), against the JAX ``mlp_apply`` and
+  ``jax.grad``: the forward within 1e-5, the loss and gradients within
+  1e-5 relative.
 """
 
+import itertools
 import json
 import os
 
@@ -617,18 +622,186 @@ def test_cpu_routes_load_no_kernel_library(tmp_path, monkeypatch):
 def test_mlp_plan_shrinks_the_tile_then_refuses():
     from ldpc_decoders_tpu_torch.ops import mlp_kernel
 
-    assert mlp_kernel.mlp_plan([6, 100, 100, 6], False) == (64, 109120)
-    assert mlp_kernel.mlp_plan([6, 100, 100, 6], True) == (64, 214768)
+    assert mlp_kernel.mlp_plan([6, 100, 100, 6], False) == (64, 104672)
+    assert mlp_kernel.mlp_plan([6, 100, 100, 6], True) == (128, 217344)
     # Wider layers take fewer rows per tile before the kernel refuses.
-    assert mlp_kernel.mlp_plan([6, 140, 140, 6], True)[0] == 16
-    assert mlp_kernel.mlp_plan([6, 147, 147, 6], True)[0] == 8
+    assert mlp_kernel.mlp_plan([6, 140, 140, 6], True)[0] == 32
+    assert mlp_kernel.mlp_plan([6, 147, 147, 6], True) == (16, 223584)
+    assert mlp_kernel.mlp_plan([6, 152, 152, 6], True) == (16, 232224)
+    assert mlp_kernel.mlp_plan([6, 158, 158, 6], True) == (8, 231024)
     with pytest.raises(ValueError, match="smallest row tile, 8 rows"):
-        mlp_kernel.mlp_plan([6, 148, 148, 6], True)
-    assert mlp_kernel.mlp_plan([6, 213, 213, 6], False)[0] == 8
+        mlp_kernel.mlp_plan([6, 159, 159, 6], True)
+    assert mlp_kernel.mlp_plan([6, 200, 200, 6], False)[0] == 32
+    assert mlp_kernel.mlp_plan([6, 213, 213, 6], False) == (16, 232352)
+    assert mlp_kernel.mlp_plan([6, 224, 224, 6], False) == (8, 229408)
     with pytest.raises(ValueError, match="too wide"):
-        mlp_kernel.mlp_plan([6, 214, 214, 6], False)
+        mlp_kernel.mlp_plan([6, 225, 225, 6], False)
     with pytest.raises(ValueError, match="layers"):
         mlp_kernel.mlp_plan([6] * 19, False)
+
+
+def _ffma_form_smem_floats(sizes, tile, train):
+    """The shared memory, in floats, of the fused MLP kernel's FFMA form
+    (tiles of 64, 32, 16 or 8 rows), which the split-TF32 form replaced:
+    weights in rows of a multiple of 16 floats, activation and gradient
+    rows of tile + 4 floats, in training two gradient buffers of the
+    widest layer but the input and the CTA's gradients unpadded."""
+    def region(n):
+        return -(-n // 4) * 4
+
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    row = tile + 4
+    n = sum(region(n_in * -(-n_out // 16) * 16) + region(n_out)
+            for n_in, n_out in pairs)
+    if not train:
+        return n + 2 * region(row * max(sizes))
+    return (n + sum(region(row * (w + 1)) for w in sizes[:-1])
+            + region(row * sizes[-1]) + 2 * region(row * max(sizes[1:]))
+            + region(tile * sizes[-1])
+            + sum(region((n_in + 1) * n_out) for n_in, n_out in pairs))
+
+
+@pytest.mark.parametrize("hidden,widths", [
+    (1, range(1, 1300, 3)), (2, range(1, 300, 6)), (3, range(1, 200, 13))])
+def test_mlp_plan_takes_every_net_the_ffma_form_took(hidden, widths):
+    """Every net the FFMA form's layout fit in a block at its smallest
+    tile, 8 rows, gets a plan, for hidden layers of every width on the
+    grid and several input widths D."""
+    from ldpc_decoders_tpu_torch.ops import mlp_kernel
+    from ldpc_decoders_tpu_torch.ops.geometry import SMEM_PER_CTA
+
+    taken = 0
+    for dim in (1, 3, 6, 16, 64, 100):
+        for hs in itertools.product(widths, repeat=hidden):
+            sizes = [dim, *hs, dim]
+            for train in (False, True):
+                if 4 * _ffma_form_smem_floats(sizes, 8, train) \
+                        > SMEM_PER_CTA:
+                    continue
+                tile, smem = mlp_kernel.mlp_plan(sizes, train)
+                assert smem == 4 * mlp_kernel.smem_floats(sizes, tile, train)
+                assert smem <= SMEM_PER_CTA
+                taken += 1
+    assert taken > 1000
+
+
+def _tf32(x):
+    """TF32 rounding of float32 values, as ``cvt.rna.tf32.f32`` does it:
+    to nearest, ties away from zero, on the int32 view (add 0x1000, clear
+    the low 13 bits)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32_mm(a, b, terms=3):
+    """a @ b as ``csrc/mlp_fused.cu`` computes it: each operand split into
+    big = tf32(x) and small = tf32(x - big), the product small @ big +
+    big @ small + big @ big (``terms=1``: big @ big alone, plain TF32).
+    TF32 products are exact in float32 and the sums here in float64,
+    rounded to float32 once: the emulation holds the split's own error, not
+    the order of the card's sums."""
+    def mm(*pairs):
+        return sum(p.double() @ q.double() for p, q in pairs).float()
+
+    a_big, b_big = _tf32(a), _tf32(b)
+    if terms == 1:
+        return mm((a_big, b_big))
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return mm((a_small, b_big), (a_big, b_small), (a_big, b_big))
+
+
+def _split_tf32_mlp(params, x, target, terms=3):
+    """The MLP's forward, loss and every gradient with each product in
+    split TF32, as the fused kernel takes them: the bias added in float32
+    after the product, db as the weight gradient's row of a column of 1s,
+    the hidden gradients masked where the activation is 0."""
+    ws, bs = params[0::2], params[1::2]
+    acts = [x]
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        z = _split_tf32_mm(acts[-1], w, terms) + b
+        acts.append(torch.sigmoid(z) if i + 1 == len(ws) else torch.relu(z))
+    y = acts[-1]
+    loss = torch.mean((y - target) ** 2)
+    d = (2.0 / y.numel()) * (y - target) * (y * (1.0 - y))
+    grads = []
+    for i in range(len(ws) - 1, -1, -1):
+        a1 = torch.cat([acts[i], torch.ones_like(acts[i][:, :1])], 1)
+        gw = _split_tf32_mm(a1.T.contiguous(), d, terms)
+        grads = [gw[:-1], gw[-1]] + grads
+        if i > 0:
+            d = _split_tf32_mm(d, ws[i].T.contiguous(), terms) \
+                * (acts[i] > 0)
+    return y, loss, grads
+
+
+@pytest.mark.parametrize("dim,layers", [(6, [100, 100]), (4, [64, 64])])
+def test_split_tf32_products_keep_float32_accuracy(dim, layers):
+    """The fused kernel's arithmetic, emulated in plain PyTorch on the CPU:
+    every product of the forward and of the training pass in split TF32
+    (three TF32 products a multiply-add) stays within 1e-5 of the JAX
+    ``mlp_apply`` (absolute) and of ``jax.grad`` of the JAX loss (loss and
+    each gradient relative, the norm of the difference over the JAX
+    gradient's), on 4096 numpy-seeded rows. Plain TF32 (one product) does
+    not: its forward misses the 1e-5 bar."""
+    rng = np.random.default_rng(14)
+    rows = rng.normal(0.5, 0.8, (4096, dim)).astype(np.float32)
+    target = np.array(jax_projection.project_parity_polytope(
+        jnp.asarray(rows)))
+    jparams = jax_admma.mlp_init(jax.random.PRNGKey(5), dim, layers)
+
+    def loss_fn(p):
+        return jnp.mean((jax_admma.mlp_apply(p, jnp.asarray(rows))
+                         - jnp.asarray(target)) ** 2)
+
+    jout = np.asarray(jax_admma.mlp_apply(jparams, jnp.asarray(rows)))
+    jloss, jgrads = jax.value_and_grad(loss_fn)(jparams)
+    params = [torch.from_numpy(np.array(g[k])) for g in jparams
+              for k in ("w", "b")]
+    x, t = torch.from_numpy(rows), torch.from_numpy(target)
+    out, loss, grads = _split_tf32_mlp(params, x, t)
+    assert float(np.abs(out.numpy() - jout).max()) <= 1e-5
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    want = [np.asarray(g[k]) for g in jgrads for k in ("w", "b")]
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape
+        assert np.linalg.norm(got.numpy() - w) / np.linalg.norm(w) < 1e-5
+    out1, _, _ = _split_tf32_mlp(params, x, t, terms=1)
+    assert float(np.abs(out1.numpy() - jout).max()) > 1e-5
+
+
+def test_relu_ties_decide_gradients_over_many_rows():
+    """Over 100,003 rows of [6, 158, 158, 6] a few hidden pre-activations
+    lie within float32's rounding of 0, and deciding one such relu the
+    other way moves a gradient summed over the rows by more than 1e-5
+    relative: the plain MLP in float32 and the kernel's split-TF32
+    arithmetic (emulated) both miss 1e-5 against float64 on these rows.
+    On the rows that the card tests keep (``off_relu_ties``: no hidden
+    pre-activation within 2^-17 of its terms' magnitude of 0) both are
+    within 1e-5 of float64 for every gradient."""
+    from ldpc_decoders_tpu_torch.ops import mlp_kernel
+    from ldpc_decoders_tpu_torch.ops.admm_step import project_rows
+    from tests.test_torch_cuda import off_relu_ties
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(0.5, 0.8, (100_003, 6))
+                         .astype(np.float32))
+    params = [p.detach() for p in admma.mlp_init(6, [158, 158], 6,
+                                                 device="cpu").parameters()]
+
+    def errors(x):
+        t = project_rows(x)
+        _, want = mlp_kernel.mlp_train_plain(
+            [p.double().requires_grad_(True) for p in params], x.double(),
+            t.double())
+        _, plain = mlp_kernel.mlp_train_plain(
+            [p.clone().requires_grad_(True) for p in params], x, t)
+        split = _split_tf32_mlp(params, x, t)[2]
+        return [max(float((g.double() - w).norm() / w.norm())
+                    for g, w in zip(grads, want)) for grads in (plain, split)]
+
+    assert min(errors(x)) > 1e-5
+    keep = off_relu_ties(params, x)
+    assert 0 < int((~keep).sum()) < 2000
+    assert max(errors(x[keep].contiguous())) < 1e-5
 
 
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):

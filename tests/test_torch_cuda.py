@@ -810,44 +810,91 @@ def test_admm_step_kernels_bit_equal_plain(cuda, name, batch):
         [1, 2, 1, 0, 0]
 
 
+def off_relu_ties(params, x, rel=2.0 ** -17):
+    """Which rows of x keep every hidden pre-activation z of the MLP
+    farther than ``rel`` times its terms' magnitude (the sum of |a w| and
+    |b|) from 0, in float64. Nearer, the relu's decision hangs on the last
+    bits of the arithmetic (float32's own included), and one decided the
+    other way moves a gradient summed over 100,003 rows by ~1e-5 relative
+    (tests/test_torch_admma.py::
+    test_relu_ties_decide_gradients_over_many_rows)."""
+    a = x.double()
+    keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    for w, b in zip(params[0:-2:2], params[1:-2:2]):
+        w, b = w.detach().double(), b.detach().double()
+        z = a @ w + b
+        keep &= (z.abs() > rel * (a.abs() @ w.abs() + b.abs())).all(1)
+        a = torch.relu(z)
+    return keep
+
+
 def _mlp_rows(dim, layers, rows, cuda, seed):
+    """The MLP of ``mlp_init(seed)``, ``rows`` rows drawn from N(0.5, 0.8)
+    with numpy's seed, passing over rows at a relu tie (``off_relu_ties``),
+    and their exact projection as the target."""
     from ldpc_decoders_tpu_torch.decoders.admma import mlp_init
     from ldpc_decoders_tpu_torch.ops.admm_step import project_rows
 
+    params = list(mlp_init(dim, layers, seed, device=cuda).parameters())
     rng = np.random.default_rng(seed)
-    x = torch.as_tensor(rng.normal(0.5, 0.8, (rows, dim)).astype(np.float32),
-                        device=cuda)
-    return list(mlp_init(dim, layers, seed, device=cuda).parameters()), x, \
-        project_rows(x)
+    x = torch.as_tensor(rng.normal(0.5, 0.8, (rows + rows // 8 + 64, dim))
+                        .astype(np.float32), device=cuda)
+    x = x[off_relu_ties(params, x)][:rows].contiguous()
+    assert x.shape[0] == rows
+    return params, x, project_rows(x)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,layers", [(6, [100, 100]), (4, [64, 64]),
-                                        (6, [32]), (5, [12, 40])])
-def test_mlp_kernel_within_tolerance_of_plain(cuda, dim, layers):
+@pytest.mark.parametrize("dim,layers,rows,train", [
+    (6, [100, 100], 100_003, True), (4, [64, 64], 100_003, True),
+    (6, [32], 100_003, True), (5, [12, 40], 100_003, True),
+    (6, [100, 100], 1, True), (6, [100, 100], 15, True),
+    (6, [100, 100], 17, True), (6, [147, 147], 100_003, True),
+    (6, [152, 152], 100_003, True), (6, [158, 158], 100_003, True),
+    (6, [107, 107, 107], 100_003, True), (6, [213, 213], 100_003, False),
+    (6, [224, 224], 100_003, False), (6, [1200], 100_003, False)])
+def test_mlp_kernel_within_tolerance_of_plain(cuda, dim, layers, rows, train):
     """K4 against the plain MLP on the card (TF32 off): the forward within
-    1e-5 abs; the training loss and every gradient within 1e-5 relative (the
-    norm of the difference over the plain gradient's norm); and the same
-    bits on a second run."""
+    1e-5 abs and the training loss within 1e-5 relative of the plain MLP;
+    every gradient within 1e-5 relative (the norm of the difference over
+    the reference's norm) of the plain MLP evaluated in float64 from the
+    same float32 parameters and rows; and the same bits on a second run.
+    The gradients' reference is float64, and the rows pass over relu ties
+    (``_mlp_rows``): at a tie the float32 plain MLP and the kernel may each
+    decide the relu either way, and on the first case the float32 plain MLP
+    misses the bar against float64 by one such decision, so a float32
+    reference or tied rows would measure which way the last bits fell, not
+    the kernel's accuracy. Nets up to the widest
+    the kernel takes: the widest of the FFMA form before it ([6, 213, 213,
+    6] forward only, [6, 147, 147, 6] trains), the widest at 16 rows a tile
+    ([6, 152, 152, 6]), and nets that fit only the 8-row tile, whose row
+    strides carry no padding ([6, 224, 224, 6] and [6, 1200, 6] forward,
+    [6, 158, 158, 6] and [6, 107, 107, 107, 6] train); and row counts that
+    leave a ragged tile, one row, or fewer rows than a 16-row block."""
     from ldpc_decoders_tpu_torch.ops import mlp_kernel
 
     assert not torch.backends.cuda.matmul.allow_tf32
-    params, x, target = _mlp_rows(dim, layers, 100_003, cuda, seed=dim)
+    params, x, target = _mlp_rows(dim, layers, rows, cuda, seed=dim)
     out = mlp_kernel.mlp_forward_cuda(params, x)
     want = mlp_kernel.mlp_forward_plain(params, x).detach()
     torch.cuda.synchronize()
     assert float((out - want).abs().max()) <= 1e-5
+    assert torch.equal(out, mlp_kernel.mlp_forward_cuda(params, x))
+    if not train:
+        return
     loss, grads = mlp_kernel.mlp_train_cuda(params, x, target)
-    loss_p, grads_p = mlp_kernel.mlp_train_plain(params, x, target)
+    loss_p, _ = mlp_kernel.mlp_train_plain(params, x, target)
+    _, grads_64 = mlp_kernel.mlp_train_plain(
+        [p.detach().double().requires_grad_(True) for p in params],
+        x.double(), target.double())
     torch.cuda.synchronize()
     assert abs(float(loss) - float(loss_p)) <= 1e-5 * float(loss_p)
-    for g, w in zip(grads, grads_p):
+    for g, w in zip(grads, grads_64):
         assert g.shape == w.shape
-        assert float((g - w).norm() / w.norm()) < 1e-5
+        assert float((g.double() - w).norm() / w.norm()) < 1e-5
     loss2, grads2 = mlp_kernel.mlp_train_cuda(params, x, target)
     assert torch.equal(loss, loss2)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
-    assert torch.equal(out, mlp_kernel.mlp_forward_cuda(params, x))
 
 
 @pytest.mark.cuda
