@@ -189,7 +189,10 @@ Phases (any failure exits non-zero and prints no result line):
    relative (norm of the difference over the plain one's) of autograd's,
    and the same bits on a second run; each kernel's time beside its plain
    version's, Adam's update, and the whole iteration (PR 10's plain loop:
-   26.317 ms); TF32 must be off;
+   26.317 ms); TF32 must be off. K3 also on the state after 36 loop
+   iterations of the exact loop on (a)'s words, most of them frozen:
+   bit-equal to its plain version, its time beside the bound of the running
+   words' bytes;
    (b) offline training: dim 4 [64, 64], 1500 steps of 512, MSE < 5e-3
    against the exact projection on 256 held-out rows; dim 6 [100, 100],
    2000 steps of 1024 (a main path: K2 and K4), its loss; steps/s of both;
@@ -369,6 +372,8 @@ LT_KEYS = ("edge_sym", "edge_var", "msg")
 # ADMMA (phase 7): the CLI's MLP width and the cap of its run.
 ADMMA_LAYERS = [100, 100]
 ADMMA_CAP = 50
+# K3's second input: the state after this many loop iterations.
+ADMMA_FROZEN_ITERS = 36
 # Several ranks (phase 8): ranks, the flagship's points and min-wec (several
 # chunks of 16384 at 3.0 dB), the words of each timed flagship run, the
 # edge-sharded batch, and the min-wec of the REG_ENS members (two chunks of
@@ -874,7 +879,8 @@ def admma_phase(card: str) -> tuple:
               f"{float(iters.float().mean()):.3f}, loop iterations (Adam "
               f"steps) {n_loop}; wer "
               f"{float((x_hat != 1).any(dim=1).float().mean()):.5f}; decode "
-              f"{secs:.3f} s = {B_CHECK / secs:.1f} cw/s; peak memory "
+              f"{secs:.3f} s = {B_CHECK / secs:.1f} cw/s (PR 14: 12,607.6); "
+              f"peak memory "
               f"{peak / 2**30:.3f} GiB ({rows_b} rows) | {card}", flush=True)
 
         # Each kernel of the loop against its plain version on (a)'s
@@ -959,6 +965,54 @@ def admma_phase(card: str) -> tuple:
             fail("the fused MLP kernel is out of its tolerance against the "
                  "plain MLP, or differs between two runs")
 
+        # K3 on (ii): the state after ADMMA_FROZEN_ITERS loop iterations of
+        # the exact loop (its plain halves and projection) on (a)'s words,
+        # most of them frozen; each timed launch starts from that state.
+        mu_t = torch.tensor(3.0, device=dev)
+        thresh_t = torch.tensor(thresh, device=dev)
+        fz_state = (x0, z, lam, upd0, done0)
+        for it in range(ADMMA_FROZEN_ITERS + 1):
+            fz_new, fz_e, fz_v = admm_kernel.admm_iter_pre_plain(
+                fz_state[1], fz_state[2], g, t, inv_mu_t)
+            fz_target = project_parity_polytope(fz_v, mask=t.cmask)
+            fz_want = admm_kernel.admm_iter_post_plain(
+                *fz_state[:3], fz_new, fz_e, fz_target, *fz_state[3:], t,
+                mu_t, thresh_t)
+            if it < ADMMA_FROZEN_ITERS:
+                fz_state = fz_want[:5]
+        fz_work = [a.clone() for a in fz_state]
+
+        def post_frozen():
+            for a, b in zip(fz_work, fz_state):
+                a.copy_(b)
+            torch.cuda._sleep(2_000_000)    # the launch is enqueued meanwhile
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = admm_step.admm_iter_post_cuda(
+                *fz_work[:3], fz_new, None, fz_target, *fz_work[3:], st,
+                3.0, thresh)
+            stop.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(stop), out
+
+        err_fz = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(post_frozen()[1], fz_want))
+        if err_fz:
+            fail("admm_iter_post kernel != plain on the frozen-word state "
+                 f"(max |diff| {err_fz})")
+        ms_fz = min(post_frozen()[0] for _ in range(5))
+        running = int((~fz_state[4]).sum())
+        fz_bytes = (running * 4 * (5 * C * Dc + 2 * code.get_n())
+                    + B_CHECK)
+        fz_bound = 1e3 * fz_bytes / HBM_BYTES_PER_S
+        print(f"timing admma admm_iter_post on the state after "
+              f"{ADMMA_FROZEN_ITERS} loop iterations, B={B_CHECK}: "
+              f"{B_CHECK - running} of {B_CHECK} words frozen (share "
+              f"{1 - running / B_CHECK:.4f}); bit-equal to plain; kernel "
+              f"{ms_fz:.4f} ms; bound {fz_bound:.4f} ms by the running "
+              f"words' bytes ({fz_bytes} B) | {card}", flush=True)
+
         # Times per loop iteration: each kernel beside its plain version,
         # and Adam's update.
         opt = admma.make_adam(mlp, 1e-3)
@@ -1016,6 +1070,9 @@ def admma_phase(card: str) -> tuple:
             entries[k] = {"ms": ms[k][0], "plain_ms": ms[k][1],
                           "bound_ms": bound[by], "bound_by": by,
                           "library_ms": None}
+            if k == "admm_iter_post":
+                entries[k].update(frozen_ms=ms_fz, frozen_bound_ms=fz_bound,
+                                  frozen_share=1 - running / B_CHECK)
             print(f"timing admma {k} at B={B_CHECK} ({rows_b} rows): kernel "
                   f"{ms[k][0]:.4f} ms vs plain {ms[k][1]:.4f}; bound "
                   f"{bound[by]:.4f} ms by {by} (bytes {bound['bytes']:.4f}, "
@@ -1104,7 +1161,8 @@ def admma_phase(card: str) -> tuple:
     n_diff = int((xp != xe).any(dim=1).sum())
     n_it = int((ip != ie).sum())
     print(f"admma eval {FLAG} biawgn 2.5 dB cap {ADMMA_CAP}, committed "
-          f"model: kernels {secs_e:.3f} s = {B_CHECK / secs_e:.1f} cw/s, "
+          f"model: kernels {secs_e:.3f} s = {B_CHECK / secs_e:.1f} cw/s "
+          f"(PR 14: 34,685.5), "
           f"plain route {secs_p:.3f} s = {B_CHECK / secs_p:.1f} cw/s; words "
           f"whose decisions differ {n_diff} of {B_CHECK} (bar: at most "
           f"{B_CHECK // 1000}), iteration counts differ on {n_it}; mean "

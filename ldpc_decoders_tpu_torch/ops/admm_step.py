@@ -24,7 +24,11 @@ the kernels or raises.
 The state keeps the plain version's layout, z, lam and v [B, C, Dc]
 row-major, so v is the MLP's [B*C, Dc] rows as it lies. K3 updates x, z,
 lam, updates and done in place (the plain version returns new tensors):
-no second copy of the state is made per iteration.
+no second copy of the state is made per iteration. It touches the running
+words only (the plain version leaves a frozen word as it was and does not
+count it), moving units of ``post_plan``'s rows through shared memory by
+bulk copies, so z, z_new and lam must start 16-byte aligned, as fresh
+tensors do.
 """
 
 from __future__ import annotations
@@ -37,16 +41,26 @@ import torch
 from ldpc_decoders_tpu_torch.ops._build import load_library
 from ldpc_decoders_tpu_torch.ops.admm_kernel import (
     MAX_CHK_DEG,
+    ROW_BLOCK,
     _inv_mu,
     _threshold,
     admm_decode_plain,
     admm_loop,
 )
-from ldpc_decoders_tpu_torch.ops.geometry import MAX_THREADS, WARP
+from ldpc_decoders_tpu_torch.ops.geometry import (
+    MAX_THREADS,
+    SMEM_PER_CTA,
+    WARP,
+)
 from ldpc_decoders_tpu_torch.ops.graph import BPTables
 from ldpc_decoders_tpu_torch.ops.projection import project_parity_polytope
 
-STEP_THREADS = 256      # K1 and K3: threads per word, fewer on small graphs
+STEP_THREADS = 256      # K1: threads per word, fewer on small graphs
+POST_STAGES = 2         # K3: units in flight per CTA (kStages)
+POST_PLANES = 3         # K3's staged planes: z, z_new, lam (kPlanes)
+POST_MAX_ROWS = MAX_THREADS - WARP      # K3: rows per unit beside the producer
+POST_ROWS = 256         # K3: the most rows per unit the wrapper plans
+POST_STATIC_BYTES = 48  # K3's mbarriers and unit slots
 
 
 class StepTables(NamedTuple):
@@ -66,9 +80,47 @@ def step_tables(t: BPTables) -> StepTables:
 
 
 def step_threads(n: int) -> int:
-    """Threads per word for a word of ``n`` slots or rows: STEP_THREADS,
-    or whole warps enough for ``n`` where that is fewer."""
+    """K1's threads per word for a word of ``n`` slots or variables:
+    STEP_THREADS, or whole warps enough for ``n`` where that is fewer."""
     return min(STEP_THREADS, max(WARP, -(-n // WARP) * WARP), MAX_THREADS)
+
+
+class PostPlan(NamedTuple):
+    """How K3 runs on a [C, Dc] graph: ``rows`` check rows per unit, whole
+    runs of 32, one per consumer thread (a word is ceil(C / rows) units);
+    ``plane`` floats per staged plane of a stage, a multiple of 4 with room
+    for a unit's slots shifted by up to 3 to keep the bulk copies 16-byte
+    aligned; ``smem_bytes`` of the CTA, static part included; ``threads``,
+    the rows and the producer warp."""
+    rows: int
+    plane: int
+    smem_bytes: int
+    threads: int
+
+
+def post_plan(C: int, Dc: int, max_rows: int = POST_ROWS) -> PostPlan:
+    """K3's plan: the fewest units per word of at most ``max_rows`` rows,
+    their runs shared out evenly (C = 600: three units of 224 rows at the
+    default; margulis, C = 1320: six). ValueError where the card cannot
+    take it. Of 96 to 992 rows, 160 and 224 were fastest on an H100 at
+    B=4096 on LDPC(1200,3,6), 608 (the whole word) 7% slower (PERF.md
+    PR 15)."""
+    if not 1 <= Dc <= MAX_CHK_DEG:
+        raise ValueError(f"check row width {Dc} not in 1..{MAX_CHK_DEG}")
+    if C < 1 or max_rows % WARP or not WARP <= max_rows <= POST_MAX_ROWS:
+        raise ValueError(f"no plan for C={C} at {max_rows} rows per unit")
+    runs = -(-C // WARP)
+    per_unit = max_rows // WARP
+    units = -(-runs // per_unit)
+    rows = WARP * -(-runs // units)
+    plane = 4 * -(-(rows * Dc + 3) // 4)
+    smem = (4 * POST_STAGES * (POST_PLANES * plane + 2 * rows // ROW_BLOCK)
+            + POST_STATIC_BYTES)
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"K3 needs {smem} bytes of shared memory at "
+                         f"{rows} rows of {Dc}; an SM gives a CTA "
+                         f"{SMEM_PER_CTA}")
+    return PostPlan(rows, plane, smem, rows + WARP)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -152,11 +204,13 @@ project_rows_cuda.launches = 0
 
 
 def admm_iter_post_cuda(x, z, lam, x_new, x_e, z_new, updates, done,
-                        st: StepTables, mu: float, thresh: float) -> tuple:
+                        st: StepTables, mu: float, thresh: float,
+                        plan: Optional[PostPlan] = None) -> tuple:
     """K3 on the current stream (no sync): updates x, z, lam, updates and
     done in place and returns them with ``left``, the 0-dim int32 count of
     the words not yet done. ``x_e`` is not read (K3 gathers it from x_new;
-    the plain version's signature). Counts launches in
+    the plain version's signature). ``plan`` forces a launch plan
+    (``post_plan``), for tests and measurements. Counts launches in
     ``admm_iter_post_cuda.launches``."""
     _f32(x, z, lam, x_new, z_new)
     C, Dc = st.chk_var.shape
@@ -166,16 +220,20 @@ def admm_iter_post_cuda(x, z, lam, x_new, x_e, z_new, updates, done,
             or updates.shape != (B,) or updates.dtype != torch.int32
             or done.shape != (B,) or done.dtype != torch.bool):
         raise ValueError("admm_iter_post: shapes or types do not match")
-    left = torch.empty((), dtype=torch.int32, device=x.device)
+    if any(a.data_ptr() % 16 for a in (z, z_new, lam)):
+        raise ValueError("admm_iter_post: z, z_new and lam must start "
+                         "16-byte aligned (the bulk copies' rule)")
+    plan = plan or post_plan(C, Dc)
+    counts = torch.empty(2, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _kernel_library().admm_iter_post_launch(
             x.data_ptr(), z.data_ptr(), lam.data_ptr(), x_new.data_ptr(),
             z_new.data_ptr(), st.chk_var.data_ptr(),
-            updates.data_ptr(), done.data_ptr(), left.data_ptr(), B, C, V,
-            Dc, float(mu), float(thresh), step_threads(C), _stream(x))
+            updates.data_ptr(), done.data_ptr(), counts.data_ptr(), B, C, V,
+            Dc, float(mu), float(thresh), plan.rows, plan.plane, _stream(x))
     _raise(rc, "admm_iter_post")
     admm_iter_post_cuda.launches += 1
-    return x, z, lam, updates, done, left
+    return x, z, lam, updates, done, counts[0]
 
 
 admm_iter_post_cuda.launches = 0
@@ -190,7 +248,8 @@ def _kernel_library() -> ctypes.CDLL:
         lib.admm_iter_pre_launch.restype = i
         lib.project_rows_launch.argtypes = [p, p, p, ll, i, i, p]
         lib.project_rows_launch.restype = i
-        lib.admm_iter_post_launch.argtypes = [p] * 9 + [i] * 4 + [f, f, i, p]
+        lib.admm_iter_post_launch.argtypes = ([p] * 9 + [i] * 4 + [f, f]
+                                              + [i, i, p])
         lib.admm_iter_post_launch.restype = i
         lib.admm_step_error_string.argtypes = [i]
         lib.admm_step_error_string.restype = ctypes.c_char_p

@@ -39,6 +39,10 @@ The plain versions of the card's kernels (``ops/admm_step.py``,
   library; the kernels' wrappers refuse CPU tensors; the fused MLP's
   shared-memory plan and its refusal; the kernel build's hash covers the
   headers a source includes;
+- K3's contract and plan: the plain dual update leaves a frozen word as
+  given and does not count it (what lets the kernel pass over it); the
+  launch plan takes every code of the repo at widths 1..8 within shared
+  memory; the norms folded unit by unit equal ``word_sum`` bit for bit;
 - the fused MLP kernel's split-TF32 products, emulated in plain PyTorch
   (TF32 rounding on the int32 view), against the JAX ``mlp_apply`` and
   ``jax.grad``: the forward within 1e-5, the loss and gradients within
@@ -851,3 +855,117 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
+
+
+@pytest.mark.parametrize("name,batch", [("7_4_hamming", 9),
+                                        ("1200_3_6_ldpc", 6),
+                                        ("1200_rho_x5_rand_ldpc_3", 7)])
+def test_plain_post_leaves_frozen_words_as_given(name, batch):
+    """``admm_iter_post_plain`` on a batch of frozen and running words
+    (some of the running ones at a fixed point, so they converge now):
+    every frozen word's x, z, lam and update count come back bit for bit
+    as given and stay done, and ``left`` counts only the running words not
+    done after the iteration. K3 skips frozen words on the card and relies
+    on exactly this."""
+    from ldpc_decoders_tpu_torch.ops import admm_kernel as ak
+    from ldpc_decoders_tpu_torch.ops.graph import bp_tables
+
+    t = bp_tables(get_code(name).graph)
+    C, Dc = t.chk_var.shape
+    V = t.var_slot.shape[0]
+    rng = np.random.default_rng(batch)
+    cm = t.cmask.numpy()
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32))
+
+    x_new = f32(rng.random((batch, V)))
+    x_e = torch.where(t.cmask, x_new[:, t.chk_var], 0.0)
+    fixed = torch.as_tensor(np.arange(batch) % 3 == 0)[:, None, None]
+    z_new = torch.where(fixed, x_e,
+                        f32(np.where(cm, rng.random((batch, C, Dc)), 0)))
+    state = (f32(rng.random((batch, V))),
+             torch.where(fixed, x_e, f32(np.where(
+                 cm, rng.random((batch, C, Dc)), 0))),
+             f32(np.where(cm, rng.normal(0, 0.3, (batch, C, Dc)), 0)),
+             torch.as_tensor(rng.integers(0, 50, batch), dtype=torch.int32),
+             torch.as_tensor(rng.random(batch) < 0.5))
+    frozen = state[4].clone()
+    assert 0 < int(frozen.sum()) < batch
+    out = ak.admm_iter_post_plain(
+        *state[:3], x_new, x_e, z_new, *state[3:], t, torch.tensor(3.0),
+        torch.tensor(ak._threshold(1e-5, int(cm.sum()))))
+    for a, b in zip(out[:4], state[:4]):
+        assert torch.equal(a[frozen], b[frozen])
+    assert bool(out[4][frozen].all())
+    assert int(out[5]) == int((~out[4]).sum())
+    running = ~frozen
+    assert torch.equal(out[3][running], state[3][running] + 1)
+    assert bool(out[4][running & fixed[:, 0, 0]].all())
+
+
+def test_post_plan_takes_every_code_within_shared_memory():
+    """K3's launch plan takes every code under ``data/codes`` (and
+    Hamming(7,4)), and every check row width 1..8 at those sizes, at the
+    wrapper's rows per unit and at the most a CTA allows (992): whole runs
+    of 32 rows per unit, as few units per word as that allows and of equal
+    runs, a plane with room for a unit's slots shifted by up to 3 and
+    16-byte aligned, 2 stages within the 227 KB an SM gives a CTA."""
+    from ldpc_decoders_tpu_torch.ops import admm_step
+    from ldpc_decoders_tpu_torch.ops.geometry import MAX_THREADS, SMEM_PER_CTA
+    from ldpc_decoders_tpu_torch.ops.graph import bp_tables
+
+    codes = os.path.join(os.path.dirname(__file__), "..", "data", "codes")
+    names = sorted(f[:-4] for f in os.listdir(codes) if f.endswith(".txt"))
+    sizes = set()
+    for name in names + ["7_4_hamming"]:
+        C, Dc = bp_tables(get_code(name).graph).chk_var.shape
+        sizes |= {(C, Dc)} | {(C, d) for d in range(1, 9)}
+    assert (1320, 6) in sizes and (599, 6) in sizes
+    for (C, Dc), max_rows in itertools.product(
+            sorted(sizes), (admm_step.POST_ROWS, MAX_THREADS - 32)):
+        p = admm_step.post_plan(C, Dc, max_rows)
+        units = -(-C // p.rows)
+        assert p.rows % 32 == 0 and p.threads == p.rows + 32 <= MAX_THREADS
+        assert (units - 1) * p.rows < C <= units * p.rows <= units * max_rows
+        assert p.rows - 32 < -(-C // units)        # runs shared out evenly
+        assert units == -(-(-(-C // 32)) // (max_rows // 32))
+        assert p.plane % 4 == 0 and p.plane >= p.rows * Dc + 3
+        assert p.smem_bytes <= SMEM_PER_CTA
+        assert p.smem_bytes == 4 * admm_step.POST_STAGES * (
+            3 * p.plane + 2 * p.rows // 8) + admm_step.POST_STATIC_BYTES
+    assert admm_step.post_plan(600, 6).rows == 224
+    with pytest.raises(ValueError):
+        admm_step.post_plan(600, 9)
+    with pytest.raises(ValueError):
+        admm_step.post_plan(600, 6, max_rows=48)
+
+
+@pytest.mark.parametrize("C,rows", [(600, 992), (600, 256), (600, 64),
+                                    (1320, 992), (599, 96), (3, 992),
+                                    (1001, 512)])
+def test_post_units_fold_norms_in_word_sum_order(C, rows):
+    """K3 folds a word's norms unit by unit: a unit's 8-row block sums by
+    the strides 4, 2, 1, block b added to lane b mod 32's sum in ascending
+    order across the units, then the 32 lanes halved. That equals
+    ``admm_kernel.word_sum`` bit for bit at every unit size (a unit starts
+    at a multiple of 32 rows, so the lanes it feeds shift by 4 a run)."""
+    from ldpc_decoders_tpu_torch.ops import admm_kernel as ak
+    from ldpc_decoders_tpu_torch.ops import admm_step
+
+    plan = admm_step.post_plan(C, 6, max_rows=rows)
+    rng = np.random.default_rng(C + rows)
+    vals = torch.as_tensor(rng.random((5, C)).astype(np.float32) ** 3)
+    lanes = torch.zeros((5, 32))
+    for r0 in range(0, C, plan.rows):
+        unit = vals[:, r0:r0 + plan.rows]
+        unit = ak._pad_to(unit, 8).reshape(5, -1, 8)
+        for m in (4, 2, 1):       # lane 0 of each block after the shuffles
+            unit = unit + unit[..., torch.arange(8) ^ m]
+        blocks = unit[..., 0]
+        for j in range(blocks.shape[1]):
+            lane = (r0 // 8 + j) % 32
+            lanes[:, lane] = lanes[:, lane] + blocks[:, j]
+    for m in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, torch.arange(32) ^ m]
+    assert torch.equal(lanes[:, 0], ak.word_sum(vals))

@@ -810,6 +810,63 @@ def test_admm_step_kernels_bit_equal_plain(cuda, name, batch):
         [1, 2, 1, 0, 0]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dc", range(1, 9))
+def test_admm_iter_post_every_width_bit_equal_plain(cuda, Dc):
+    """K3 at every compiled row width, on a synthetic graph of C = 1001
+    rows (several units a word; C*Dc odd, or 2 mod 4, or a multiple of 4, so
+    words start off and on 16-byte boundaries) with random variables and
+    about a tenth of the slots padded: B = 2048 words (more than one wave
+    of CTAs), about 60% of them frozen and a fifth of the running ones at a
+    fixed point. Bit-equal to the plain version in x, z, lam, updates,
+    done and the count of words left, under the wrapper's plan (four units
+    of 256 rows a word) and units of 512, 64 and 32 rows."""
+    from ldpc_decoders_tpu_torch.ops import admm_step
+    from ldpc_decoders_tpu_torch.ops.admm_kernel import (
+        _threshold,
+        admm_iter_post_plain,
+    )
+
+    B, C, V = 2048, 1001, 700
+    rng = np.random.default_rng(Dc)
+    chk = rng.integers(0, V, (C, Dc))
+    chk[rng.random((C, Dc)) < 0.1] = -1
+    chk_var = torch.as_tensor(chk, dtype=torch.int32, device=cuda)
+    cmask = chk_var >= 0
+    st = admm_step.StepTables(chk_var, torch.zeros((V, 1), dtype=torch.int32,
+                                                   device=cuda))
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=cuda)
+
+    x_new = dev(rng.random((B, V)))
+    x_e = torch.where(cmask, x_new[:, chk_var.clamp(min=0).long()], 0.0)
+    fixed = torch.as_tensor(rng.random(B) < 0.2, device=cuda)[:, None, None]
+    z_new = torch.where(fixed, x_e, torch.where(
+        cmask, dev(rng.random((B, C, Dc))), 0.0))
+    state = (dev(rng.random((B, V))),
+             torch.where(fixed, x_e, torch.where(
+                 cmask, dev(rng.random((B, C, Dc))), 0.0)),
+             torch.where(cmask, dev(rng.normal(0, 0.3, (B, C, Dc))), 0.0),
+             torch.as_tensor(rng.integers(0, 50, B), dtype=torch.int32,
+                             device=cuda),
+             torch.as_tensor(rng.random(B) < 0.6, device=cuda))
+    thresh = _threshold(1e-5, int(cmask.sum()))
+    want = admm_iter_post_plain(*state[:3], x_new, x_e, z_new, *state[3:],
+                                None, torch.tensor(3.0, device=cuda),
+                                torch.tensor(thresh, device=cuda))
+    assert 0 < int((want[4] & ~state[4]).sum())      # some converge now
+    plans = [None] + [admm_step.post_plan(C, Dc, max_rows=r)
+                      for r in (992, 64, 32)]
+    for plan in plans:
+        got = admm_step.admm_iter_post_cuda(
+            *[a.clone() for a in state[:3]], x_new, None, z_new,
+            *[a.clone() for a in state[3:]], st, 3.0, thresh, plan=plan)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), plan
+
+
 def off_relu_ties(params, x, rel=2.0 ** -17):
     """Which rows of x keep every hidden pre-activation z of the MLP
     farther than ``rel`` times its terms' magnitude (the sum of |a w| and
