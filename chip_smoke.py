@@ -6,10 +6,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device: a CUDA device must be present (there is no CPU fallback); the
    card's name and power limit as nvidia-smi reports them.
-2. Build: the seven kernel sources (``ldpc_decoders_tpu_torch/csrc``:
+2. Build: the eight kernel sources (``ldpc_decoders_tpu_torch/csrc``:
    ``msa_decode.cu``, ``spa_decode.cu``, ``bec_decode.cu``,
-   ``admm_decode.cu``, ``lt_peel.cu``, ``admm_step.cu``, ``mlp_fused.cu``)
-   compile here, in parallel.
+   ``admm_decode.cu``, ``lt_peel.cu``, ``admm_step.cu``, ``mlp_fused.cu``,
+   ``chunk.cu``) compile here, in parallel.
 3. Kernels against their plain PyTorch versions on the card, B=4096.
    Tolerance: none — decisions and iteration counts (and the ADMM
    kernel's fractional x) must be bit-equal.
@@ -58,10 +58,24 @@ Phases (any failure exits non-zero and prints no result line):
      bf16 at 2.0 dB, SPA saturate f32 BSC p=0.05, ``EnsembleBECSPADecoder``
      p=0.4) over the ten members of each ensemble at B=2048 per member:
      each member's decisions and iteration counts == its own
-     ``BPDecoder`` / ``BECSPADecoder``'s.
+     ``BPDecoder`` / ``BECSPADecoder``'s;
+   - the chunk's passes around the decode (``ops/chunk_kernel.py``,
+     ``csrc/chunk.cu``) at the main paths' shapes, B=16384: C1
+     ``transmit`` (the codeword and the channel's draw -> LLRs, symbols or
+     both) == ``transmit_plain`` bit for bit on biAWGN 3.0 and 2.5 dB, BSC
+     p=0.05 and 0.07, BEC p=0.375 and 0.4, codewords 0 and 1 on
+     LDPC(1200,3,6) and -1 on Hamming(7,4), in every output mode and into a
+     slice of a members' plane; C2 ``tally`` == ``tally_plain`` on the
+     flagship decode's decisions with and without its iteration histogram,
+     on the ``caps=`` kernel's seven planes after label 0 (all wrong on
+     biAWGN, the symbols on the BSC), on ten members' planes (B=2048 each)
+     and on Hamming(7,4) codeword -1.
 4. The main paths through the CLI (``main.main``, codeword as stated,
    batch 16384). Each run's kernel launch count is set to 0 just before
-   it and must have risen just after; each Saver file must have the JAX
+   it and must have risen just after, C1's and C2's too (C1's alone for
+   LP, whose tally is the host's): through the whole phase the plain
+   channel chain and tally (each channel module's ``send``, ``apply`` and
+   ``llr``, ``chunk_kernel.transmit_plain`` and ``tally_plain``) raise; each Saver file must have the JAX
    package's schema, and its WER must lie within |z| <= 4 (Agresti-Coull)
    of the committed artifact in ``artifacts/data``:
    - biAWGN LDPC(1200,3,6) MSA bf16 at 2.5 dB, codeword 1;
@@ -112,8 +126,8 @@ Phases (any failure exits non-zero and prints no result line):
      joint, rotating).
 5. Timing at B=16384: the decode alone (CUDA events) and the whole step
    (sample -> LLR -> decode -> tally, host clock after a synchronize),
-   through each kernel and through its plain version, in the order plain,
-   kernel, kernel, plain: MSA bf16 biAWGN 3.0 dB; SPA reference and
+   through the kernels (C1, the decode kernel, C2) and through their plain
+   versions, in the order plain, kernel, kernel, plain: MSA bf16 biAWGN 3.0 dB; SPA reference and
    saturate bf16 biAWGN 2.5 dB; SPA reference f32 BSC p=0.05; erasure SPA
    p=0.375 cap 10. The ``caps=`` kernels (K=7, caps up to 100; decode
    only) beside the single-cap kernel at cap 100: MSA and SPA (both
@@ -131,7 +145,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``MSA_GEOMETRIES`` / ``BEC_GEOMETRIES``; the ADMM and SPA ``kernels``
    entries carry ``threads``, the count per word that the rule picked, and
    the min-sum and erasure entries ``geometry``, the rule's [warps per
-   word, words per CTA]: ``ms`` was measured under them.
+   word, words per CTA]: ``ms`` was measured under them. C1 and C2 (CUDA
+   events, 20 launches, the kernel beside its plain version in the order
+   plain, kernel, kernel, plain) on the flagship step's input: C1 biAWGN
+   3.0 dB codeword 1 to LLRs (``kernels`` entry; bound: the f32 draw in
+   and the f32 LLRs out once), and to symbols and LLRs on the BSC and to
+   symbols on the BEC; C2 on the flagship decode's plane (``kernels``
+   entry; bound: the int32 plane in and the tally out once), with the
+   2000-bin histogram, and on the ``caps=`` kernel's seven planes.
 6. LT fountain, at the golden curves' configuration (k=10000, n=12000,
    delta=0.5, c in 0.01, 0.03, 0.1; ``fountain/lt.py``):
    (a) the peel kernel (``lt_peel_cuda``) against the plain sparse engine
@@ -233,8 +254,8 @@ Phases (any failure exits non-zero and prints no result line):
    and 3.0 dB, codeword 1, global B = 16384 (8192 words a rank): each
    point's summed tallies must equal, word for word, the sum of
    single-process replays of each rank's stream at B = 8192, chunk for
-   chunk, for the chunks the mesh run took; ``msa_decode.cu`` must launch
-   in each rank; the step's cw/s at 3.0 dB over 4,194,304 words at one rank
+   chunk, for the chunks the mesh run took; ``msa_decode.cu``, C1 and C2
+   must launch in each rank; the step's cw/s at 3.0 dB over 4,194,304 words at one rank
    (before and after the spawn) and, twice, at two ranks (the tally summed
    on the host at consume, gloo's design); (b) ADMM at 2.5 dB, cap 50,
    B = 16384: the same exact replay, the 2000-bin histogram included; (c) REG_ENS biAWGN SPA bf16 2.0 dB over its
@@ -289,7 +310,10 @@ ADMM's count depends on the data twice
 over: ``admm_ops`` takes the updates the words needed and the check rows
 whose projection needed the bracket search, as counted on the plain
 version's run over the same input. No single PyTorch call computes a
-whole BP or ADMM decode, so ``library_ms`` is null.
+whole BP or ADMM decode, so ``library_ms`` is null. C1 and C2 are held to
+their bytes alone (C1: the f32 draw in and the f32 LLRs out; C2: the int32
+plane in and the tally out); no single PyTorch call computes either, so
+their ``library_ms`` is null too.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -732,16 +756,9 @@ def admma_wrappers() -> dict:
 
 
 @contextlib.contextmanager
-def plain_forbidden():
-    """While open, the plain versions of ADMMA's kernels (the plain ADMM
-    loop and its halves, the plain projection, the plain MLP and its
-    autograd pass) raise wherever a module of the port binds them."""
-    from ldpc_decoders_tpu_torch.ops import admm_kernel, mlp_kernel, projection
-
-    plain = (admm_kernel.admm_decode_plain, admm_kernel.admm_iter_pre_plain,
-             admm_kernel.admm_iter_post_plain,
-             projection.project_parity_polytope,
-             mlp_kernel.mlp_forward_plain, mlp_kernel.mlp_train_plain)
+def forbidden(plain: tuple, what: str):
+    """While open, each function of ``plain`` raises wherever a module of
+    the port binds it (``what`` names the route in the message)."""
     saved = []
     for mod in list(sys.modules.values()):
         if not getattr(mod, "__name__", "").startswith(
@@ -749,16 +766,42 @@ def plain_forbidden():
             continue
         for name, val in list(vars(mod).items()):
             if any(val is f for f in plain):
-                def forbidden(*args, _name=name, **kw):
-                    raise RuntimeError(f"the card route called the plain "
-                                       f"{_name}")
+                def refuse(*args, _name=name, **kw):
+                    raise RuntimeError(f"{what} called the plain {_name}")
                 saved.append((mod, name, val))
-                setattr(mod, name, forbidden)
+                setattr(mod, name, refuse)
     try:
         yield
     finally:
         for mod, name, val in saved:
             setattr(mod, name, val)
+
+
+def plain_forbidden():
+    """The plain versions of ADMMA's kernels (the plain ADMM loop and its
+    halves, the plain projection, the plain MLP and its autograd pass)
+    raise while open."""
+    from ldpc_decoders_tpu_torch.ops import admm_kernel, mlp_kernel, projection
+
+    return forbidden((admm_kernel.admm_decode_plain,
+                      admm_kernel.admm_iter_pre_plain,
+                      admm_kernel.admm_iter_post_plain,
+                      projection.project_parity_polytope,
+                      mlp_kernel.mlp_forward_plain,
+                      mlp_kernel.mlp_train_plain), "the card route")
+
+
+def chain_forbidden():
+    """The plain channel chain and tally (each channel module's ``send``,
+    ``apply`` and ``llr``; C1's and C2's plain versions) raise while
+    open."""
+    from ldpc_decoders_tpu_torch.channels import CHANNELS
+    from ldpc_decoders_tpu_torch.ops import chunk_kernel
+
+    chain = [getattr(m, f) for m in CHANNELS.values()
+             for f in ("send", "apply", "llr")]
+    return forbidden((*chain, chunk_kernel.transmit_plain,
+                      chunk_kernel.tally_plain), "a main path")
 
 
 @contextlib.contextmanager
@@ -1419,7 +1462,8 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
 
     # (a) the flagship: summed tallies == the replays, chunk for chunk.
     a = res["flag"]
-    count(a, "msa_decode", "flagship")
+    for kname in ("msa_decode", "transmit", "tally"):
+        count(a, kname, "flagship")
     for idx, p in enumerate(flag.params):
         st = a[0]["results"][p]
         chunks = st["tot"] // flag.batch
@@ -1440,7 +1484,8 @@ def mesh_phase(card: str, lt_one: dict) -> dict:
 
     # (b) ADMM with its histogram.
     b = res["admm"]
-    count(b, "admm_decode", "admm")
+    for kname in ("admm_decode", "transmit", "tally"):
+        count(b, kname, "admm")
     st = b[0]["results"][2.5]
     hold("admm 2.5 dB", st, replay(admm, admm.seed, 0, 2.5,
                                    st["tot"] // admm.batch))
@@ -1707,6 +1752,7 @@ def main() -> None:
             _build,
             admm_kernel,
             bec_kernel,
+            chunk_kernel,
             msa_kernel,
             spa_kernel,
         )
@@ -1729,7 +1775,7 @@ def main() -> None:
     # -- 2. build all kernels at once ----------------------------------------
     t0 = time.time()
     sources = ("msa_decode", "spa_decode", "bec_decode", "admm_decode",
-               "lt_peel", "admm_step", "mlp_fused")
+               "lt_peel", "admm_step", "mlp_fused", "chunk")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(_build.load_library, s) for s in sources]:
             try:
@@ -2017,7 +2063,126 @@ def main() -> None:
         check_members(case)
         check_joint(case)
 
+    # The chunk's passes around the decode, C1 and C2, at the main paths'
+    # shapes: kernel == plain, bit for bit.
+    for k in ("transmit", "tally"):
+        knames.append(k)
+        max_err[k] = 0
+
+    def chunk_hold(kname, label, got, want):
+        """C1 or C2 against its plain version: the same bits (a float's
+        sign of zero included), else fail; the largest |difference| goes
+        to ``max_err``."""
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want, strict=True):
+            bits = [t.view(torch.int32) if t.dtype == torch.float32 else t
+                    for t in (g, w)]
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{kname} {label}: {g.dtype} {tuple(g.shape)} != plain "
+                     f"{w.dtype} {tuple(w.shape)}")
+            if g.numel():
+                err = max(err, float((g.double() - w.double()).abs().max()))
+            if not torch.equal(*bits):
+                fail(f"{kname} kernel != plain ({label}): max_abs_err {err}")
+        max_err[kname] = max(max_err[kname], err)
+
+    def check_chunk():
+        ck = chunk_kernel
+        n_c1 = n_c2 = 0
+        for code_name, codeword, cases in (
+                (FLAG, 1, (("biawgn", 3.0), ("bsc", 0.05), ("bec", 0.375))),
+                (FLAG, 0, (("biawgn", 2.5), ("bsc", 0.07), ("bec", 0.4))),
+                ("7_4_hamming", -1, (("biawgn", 3.0), ("bsc", 0.05),
+                                     ("bec", 0.3)))):
+            code, _ = tab(code_name)
+            V = code.get_n()
+            idx = cb = None
+            if codeword == -1:
+                cb = torch.as_tensor(code.cb, dtype=torch.int32,
+                                     device="cuda")
+                g = torch.Generator(device="cuda")
+                g.manual_seed(21)
+                idx = torch.randint(0, cb.shape[0], (B_STEP,), generator=g,
+                                    device="cuda")
+            for channel, param in cases:
+                g = torch.Generator(device="cuda")
+                g.manual_seed(int(param * 1000) + V)
+                noise = CHANNELS[channel].draw((B_STEP, V), g, "cuda")
+                kw = dict(codeword=codeword, idx=idx, cb=cb)
+                label = f"{channel} {param} {code_name} codeword {codeword}"
+                for want in ck.WANTS:
+                    chunk_hold("transmit", f"{label} {want}",
+                               ck.transmit_cuda(channel, noise, param,
+                                                want=want, **kw),
+                               ck.transmit_plain(channel, noise, param,
+                                                 want=want, **kw))
+                    n_c1 += 1
+                out = torch.empty((2, B_STEP, V), device="cuda")
+                ck.transmit_cuda(channel, noise, param, out=out[1], **kw)
+                chunk_hold("transmit", f"{label} into a slice", out[1],
+                           ck.transmit_plain(channel, noise, param, **kw))
+                n_c1 += 1
+        # C2 on real decisions: the flagship decode and its iterations,
+        # the caps= kernel's planes, and Hamming(7,4) codeword -1.
+        _, t = tab(FLAG)
+        kw = dict(check_init=False, msg_dtype=bf16)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(22)
+        for snr in (3.0, 2.0):
+            llr = ck.transmit_cuda("biawgn", CHANNELS["biawgn"].draw(
+                (B_STEP, 1200), g, "cuda"), snr, 1)
+            x_hat, iters = msa_kernel.msa_decode_cuda(llr, t, max_iter=10,
+                                                      **kw)
+            for hist in (None, iters):
+                chunk_hold("tally", f"flagship {snr} dB hist "
+                           f"{hist is not None}",
+                           ck.tally_cuda(x_hat, 1, iters=hist),
+                           ck.tally_plain(x_hat, 1, iters=hist))
+            planes, _ = msa_kernel.msa_decode_cuda(llr, t, max_iter=CAPS[-1],
+                                                   caps=CAPS, **kw)
+            chunk_hold("tally", f"caps= {snr} dB, label 0 all wrong",
+                       ck.tally_cuda(planes, 1, all_wrong=True),
+                       ck.tally_plain(planes, 1, all_wrong=True))
+            n_c2 += 3
+        noise = CHANNELS["bsc"].draw((B_STEP, 1200), g, "cuda")
+        y, llr = ck.transmit_cuda("bsc", noise, 0.07, want="both")
+        planes, _ = msa_kernel.msa_decode_cuda(
+            llr, t, max_iter=CAPS[-1], caps=CAPS, check_init=True,
+            msg_dtype=f32)
+        chunk_hold("tally", "caps= bsc 0.07, label 0 the symbols",
+                   ck.tally_cuda(planes, 0, raw=y),
+                   ck.tally_plain(planes, 0, raw=y))
+        members = torch.stack([msa_kernel.msa_decode_cuda(
+            ck.transmit_cuda("biawgn", CHANNELS["biawgn"].draw(
+                (B_JOINT, 1200), g, "cuda"), 2.0, 0), t, max_iter=10,
+            **kw)[0] for _ in range(10)])
+        chunk_hold("tally", "ten members", ck.tally_cuda(members, 0),
+                   ck.tally_plain(members, 0))
+        code, _ = tab("7_4_hamming")
+        cb = torch.as_tensor(code.cb, dtype=torch.int32, device="cuda")
+        idx = torch.randint(0, cb.shape[0], (B_STEP,), generator=g,
+                            device="cuda")
+        flips = torch.rand((B_STEP, 7), generator=g, device="cuda") < 0.1
+        x_hat = (cb[idx] ^ flips.to(torch.int32)).contiguous()
+        chunk_hold("tally", "Hamming(7,4) codeword -1",
+                   ck.tally_cuda(x_hat, -1, idx, cb),
+                   ck.tally_plain(x_hat, -1, idx, cb))
+        n_c2 += 3
+        print(f"check chunk: C1 transmit == plain bit for bit on {n_c1} "
+              f"cases, C2 tally == plain on {n_c2} (B={B_STEP}; members "
+              f"{B_JOINT} each); max_abs_err {max_err['transmit']} / "
+              f"{max_err['tally']}", flush=True)
+
+    check_chunk()
+
     # -- 4. the main paths through the CLI ------------------------------------
+    # Through the whole phase the plain channel chain and tally raise: every
+    # chunk goes through C1 and C2.
+    phase4 = contextlib.ExitStack()
+    phase4.enter_context(chain_forbidden())
     def attr_counter(fn, attr):
         return (lambda: getattr(fn, attr), lambda: setattr(fn, attr, 0))
 
@@ -2044,6 +2209,24 @@ def main() -> None:
                                              "launches"),
     }
     launches = dict.fromkeys(counters, 0)
+    launches.update(transmit=0, tally=0)
+
+    @contextlib.contextmanager
+    def chunk_counted(label, tally=True):
+        """One main path with C1's and C2's counts set to 0 just before it;
+        fails unless C1 (and, where the tally is the card's, C2) launched
+        in it. Yields the counts read just after."""
+        ck = chunk_kernel
+        ck.transmit_cuda.launches = ck.tally_cuda.launches = 0
+        got = {}
+        yield got
+        got.update(transmit=ck.transmit_cuda.launches,
+                   tally=ck.tally_cuda.launches)
+        for k in ("transmit", "tally") if tally else ("transmit",):
+            if got[k] < 1:
+                fail(f"{label} did not launch C1/C2's {k}")
+        for k, v in got.items():
+            launches[k] += v
 
     def z_score(saved, ref, key):
         w_o, t_o = saved["wer"][key], saved["tot"][key]
@@ -2056,7 +2239,8 @@ def main() -> None:
         (and with ``same_name`` its file name). Returns its WER and the
         z-score against the artifact."""
         read, reset = counters[kname] if kname else (lambda: 0, lambda: None)
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, chunk_counted(
+                " ".join(argv), tally="LP" not in argv) as nc:
             reset()
             t0 = time.time()
             res = cli.main(argv + ["--batch", str(batch), "--console",
@@ -2084,7 +2268,8 @@ def main() -> None:
         z = z_score(saved, ref, key)
         shown = {k: v for k, v in res[param].items() if k != "dec"}
         print(f"cli {' '.join(argv)}: {secs:.3f} s, {kname} launches={n}, "
-              f"result={shown}", flush=True)
+              f"C1 {nc['transmit']}, C2 {nc['tally']}, result={shown}",
+              flush=True)
         print(f"cli WER at {key}: {w_o:.6f} ({saved['wec'][key]}/{t_o}) vs "
               f"artifact {artifact} {w_r:.6f} ({ref['wec'][key]}/{t_r}): "
               f"z={z:.3f}", flush=True)
@@ -2153,7 +2338,8 @@ def main() -> None:
                             device="cuda", log_freq=1e9, **cfg_kw)
             reset()
             t0 = time.time()
-            res = CapSweepRunner(cfg, CAP_LABELS).run()
+            with chunk_counted(f"cap sweep {cfg_kw}") as nc:
+                res = CapSweepRunner(cfg, CAP_LABELS).run()
             n = read()
             secs = time.time() - t0
             if n < 1:
@@ -2164,8 +2350,8 @@ def main() -> None:
             if sorted(os.listdir(tmp)) != sorted(
                     f"{stem}{lbl}.json" for lbl in CAP_LABELS):
                 fail(f"cap sweep {cfg_kw} wrote {sorted(os.listdir(tmp))}")
-            print(f"cap sweep {cfg_kw}: {secs:.3f} s, {kname} launches={n}",
-                  flush=True)
+            print(f"cap sweep {cfg_kw}: {secs:.3f} s, {kname} launches={n}, "
+                  f"C1 {nc['transmit']}, C2 {nc['tally']}", flush=True)
             for lbl in CAP_LABELS:
                 with open(os.path.join(tmp, f"{stem}{lbl}.json")) as fp:
                     saved = json.load(fp)
@@ -2248,7 +2434,8 @@ def main() -> None:
     # LDPC(1200,3,6) has no ADMM golden: the schema is margulis', the WER
     # must be a rate strictly inside (0, 1).
     read, reset = counters["admm_decode"]
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, chunk_counted(
+            f"cli biawgn {FLAG} ADMM cap 50"):
         reset()
         res = cli.main(["biawgn", FLAG, "ADMM", "--codeword", "1",
                         "--max-iter", "50", "--min-wec", "100", "--params",
@@ -2283,7 +2470,8 @@ def main() -> None:
         """Campaign ``case`` whole; every sweep point of a Saver file with
         a golden of the same name is z-checked against it."""
         read, reset = counters["admm_decode"]
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, chunk_counted(
+                f"campaign {case}"):
             reset()
             t0 = time.time()
             runs = campaign.run_campaign(
@@ -2358,8 +2546,9 @@ def main() -> None:
                              data_dir=tmp)
             reset()
             t0 = time.time()
-            res = run_route(cfg, joint)
-            torch.cuda.synchronize()
+            with chunk_counted(f"{route} {case} {channel} {decoder}"):
+                res = run_route(cfg, joint)
+                torch.cuda.synchronize()
             secs = time.time() - t0
             n = read()
             if n < len(members):
@@ -2476,6 +2665,8 @@ def main() -> None:
           f"joint {max(rates['joint']):.1f} cw/s (batch 4096 per chunk vs "
           f"{B_JOINT} per member and chunk) | {card}", flush=True)
 
+    phase4.close()
+
     # -- 5. timing ------------------------------------------------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2567,12 +2758,17 @@ def main() -> None:
         route_fn = {"kernel": cuda_fn, "plain": plain_fn}
 
         def step(decode):
-            x = torch.full((B_STEP, code.get_n()), codeword,
-                           dtype=torch.int32, device="cuda")
-            x_hat = decode(soft(channel, mod.send(x, param, gen), param),
-                           t, **kw)[0]
-            errs = (x_hat != x).sum(dim=-1)
-            return torch.stack([(errs > 0).sum(), errs.sum()])
+            """The main path's chunk through C1, the kernel and C2, or
+            through their plain versions."""
+            on_card = decode is cuda_fn
+            send = (chunk_kernel.transmit_cuda if on_card
+                    else chunk_kernel.transmit_plain)
+            count = (chunk_kernel.tally_cuda if on_card
+                     else chunk_kernel.tally_plain)
+            noise = mod.draw((B_STEP, code.get_n()), gen, "cuda")
+            inp = send(channel, noise, param, codeword,
+                       want="sym" if channel == "bec" else "llr")
+            return count(decode(inp, t, **kw)[0], codeword)
 
         def time_decode(decode, llr, reps, kw=kw):
             decode(llr, t, **kw)
@@ -2708,6 +2904,92 @@ def main() -> None:
     time_case("spa_ref_decode", "spa reference f32 bsc 0.05", FLAG, "bsc",
               0.05, dict(max_iter=10, check_init=True, msg_dtype=f32,
                          inf_policy="reference"), 0)
+
+    def time_chunk():
+        """C1 and C2 on the flagship step's input (B=16384, LDPC(1200,3,6),
+        biAWGN 3.0 dB, codeword 1), each beside its plain version (CUDA
+        events over 20 launches, 5 for the plain versions, in the order
+        plain, kernel, kernel, plain), and held equal to it there; C1 also
+        to symbols and LLRs on the BSC and to symbols on the BEC, C2 also
+        with the histogram and on the caps= kernel's seven planes. Returns
+        the two ``kernels`` entries."""
+        ck = chunk_kernel
+        _, t = tab(FLAG)
+        n_el = B_STEP * 1200
+        g = torch.Generator(device="cuda")
+        g.manual_seed(23)
+
+        def events(fn, reps):
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            stop.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(stop) / reps
+
+        def pair(label, kernel, plain, n_bytes):
+            ms = {"kernel": [], "plain": []}
+            for route in ("plain", "kernel", "kernel", "plain"):
+                fn = kernel if route == "kernel" else plain
+                ms[route].append(events(fn, 20 if route == "kernel" else 5))
+            best = {r: min(v) for r, v in ms.items()}
+            bound = 1e3 * n_bytes / HBM_BYTES_PER_S
+            print(f"timing {label}: kernel {best['kernel']:.4f} ms "
+                  f"({ms['kernel']}), plain {best['plain']:.4f} ms "
+                  f"({ms['plain']}); bound {bound:.4f} ms by bytes "
+                  f"({n_bytes} bytes), {100 * bound / best['kernel']:.1f}% "
+                  f"of it | {card}", flush=True)
+            return {"ms": best["kernel"], "plain_ms": best["plain"],
+                    "bound_ms": bound, "bound_by": "bytes",
+                    "library_ms": None}
+
+        noise = {ch: CHANNELS[ch].draw((B_STEP, 1200), g, "cuda")
+                 for ch in ("biawgn", "bsc", "bec")}
+        entries = {}
+        for channel, param, want, out_bytes in (
+                ("biawgn", 3.0, "llr", 4), ("bsc", 0.05, "both", 8),
+                ("bec", 0.375, "sym", 4)):
+            args = (channel, noise[channel], param, 1)
+            chunk_hold("transmit", f"timed {channel} {want}",
+                       ck.transmit_cuda(*args, want=want),
+                       ck.transmit_plain(*args, want=want))
+            e = pair(f"C1 transmit {channel} {param} to {want}, codeword 1, "
+                     f"B={B_STEP}",
+                     lambda a=args, w=want: ck.transmit_cuda(*a, want=w),
+                     lambda a=args, w=want: ck.transmit_plain(*a, want=w),
+                     n_el * (4 + out_bytes))
+            entries.setdefault("transmit", dict(
+                e, input=f"biawgn 3.0 dB codeword 1 to LLRs, B={B_STEP}"))
+        llr = ck.transmit_cuda("biawgn", noise["biawgn"], 3.0, 1)
+        x_hat, iters = msa_kernel.msa_decode_cuda(
+            llr, t, max_iter=10, check_init=False, msg_dtype=bf16)
+        planes, _ = msa_kernel.msa_decode_cuda(
+            llr, t, max_iter=CAPS[-1], caps=CAPS, check_init=False,
+            msg_dtype=bf16)
+        for label, args, kw, n_bytes in (
+                ("one plane", (x_hat, 1), {}, 4 * n_el + 16),
+                ("one plane and the histogram", (x_hat, 1),
+                 {"iters": iters}, 4 * n_el + 4 * B_STEP + 8 * 2002),
+                (f"caps= {len(CAPS)} planes, label 0 all wrong", (planes, 1),
+                 {"all_wrong": True}, 4 * len(CAPS) * n_el + 16 * 8)):
+            chunk_hold("tally", f"timed {label}", ck.tally_cuda(*args, **kw),
+                       ck.tally_plain(*args, **kw))
+            e = pair(f"C2 tally {label}, flagship decode 3.0 dB, B={B_STEP}",
+                     lambda a=args, k=kw: ck.tally_cuda(*a, **k),
+                     lambda a=args, k=kw: ck.tally_plain(*a, **k), n_bytes)
+            if "tally" not in entries:
+                entries["tally"] = dict(e, input=f"the flagship decode's "
+                                        f"plane, B={B_STEP}")
+            elif "caps" in label:
+                entries["tally"].update(caps_ms=e["ms"],
+                                        caps_plain_ms=e["plain_ms"],
+                                        caps_bound_ms=e["bound_ms"])
+        return entries
+
+    timed.update(time_chunk())
 
     def time_spa_margulis():
         """margulis, biAWGN 2.25 dB, bf16, reference policy, B=16384: the
@@ -2850,6 +3132,12 @@ def main() -> None:
             replaces = "ldpc_decoders_tpu/decoders/admma.py:56"
         elif k in ADMMA_KERNELS:    # _admm_core's iteration, split
             src, replaces = "admm_step.cu", pallas + "1219"
+        elif k in ("transmit", "tally"):
+            # No Pallas kernel: the JAX chunk body's send and llr, and its
+            # tally, which XLA fuses around the decode.
+            src = "chunk.cu"
+            replaces = ("ldpc_decoders_tpu/harness/runner.py:"
+                        + ("460" if k == "transmit" else "465"))
         else:
             src, line = sources[k.removesuffix("_caps")]
             replaces = pallas + line

@@ -30,14 +30,30 @@ from ldpc_decoders_tpu_torch.decoders.ml import MLBEC
 SAFE_INF = 1e8
 
 
+def draw(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The channel's draw for ``shape`` symbols: float32 uniforms on [0, 1)
+    from ``generator`` (which must live on ``device``)."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=device)
+
+
+def apply(x: torch.Tensor, u: torch.Tensor, p) -> torch.Tensor:
+    """Erase each symbol of x [B, n] in {0,1} where the draw ``u`` is < p:
+    y [B, n] int32 in {0,1,2}."""
+    return torch.where(u < p, ERASURE, x.to(torch.int32))
+
+
 def send(x: torch.Tensor, p,
          generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Erase each symbol where a float32 uniform from ``generator`` (which
     must live on x's device) is < p. x [B, n] in {0,1} -> y [B, n] int32
     in {0,1,2}."""
-    u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
-                   device=x.device)
-    return torch.where(u < p, ERASURE, x.to(torch.int32))
+    return apply(x, draw(x.shape, generator, x.device), p)
+
+
+def constants(p, device) -> tuple:
+    """(): the erasure threshold is p itself, a host float."""
+    return ()
 
 
 def llr(y: torch.Tensor, p=None) -> torch.Tensor:
@@ -47,7 +63,10 @@ def llr(y: torch.Tensor, p=None) -> torch.Tensor:
 
 
 class _TernarySPA:
-    """Adapts the symbol-domain decoder to the channel's call shape."""
+    """Adapts the symbol-domain decoder to the channel's call shape; it
+    takes the channel's symbols (``takes``)."""
+
+    takes = "sym"
 
     def __init__(self, code, device=None, **kw):
         self.dec = BECSPADecoder(code.graph, device=device, **kw)
@@ -56,6 +75,8 @@ class _TernarySPA:
     def decode(self, y, p, generator=None):
         x_hat, iters = self.dec.decode(y)
         return x_hat, {"iters": iters}
+
+    decode_input = decode
 
 
 SPA = _TernarySPA

@@ -37,14 +37,33 @@ def _f32(val, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), val, dtype=torch.float32, device=like.device)
 
 
+def constants(snr_db, device) -> tuple:
+    """(std, var): the noise's standard deviation and variance as the 0-dim
+    float32 tensors on ``device`` that ``apply`` and ``llr`` compute
+    (``ops/chunk_kernel.py`` hands them to its kernel)."""
+    var = torch.full((), noise_var(snr_db), dtype=torch.float32,
+                     device=device)
+    return torch.sqrt(var), var
+
+
+def draw(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The channel's draw for ``shape`` symbols: standard normal float32
+    from ``generator`` (which must live on ``device``)."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+
+
+def apply(x: torch.Tensor, noise: torch.Tensor, snr_db) -> torch.Tensor:
+    """x [B, n] in {0,1} and the draw ``noise`` -> y [B, n] float32."""
+    std = torch.sqrt(_f32(noise_var(snr_db), x))
+    return (2.0 * x.to(torch.float32) - 1.0) + std * noise
+
+
 def send(x: torch.Tensor, snr_db,
          generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """x [B, n] in {0,1} -> y [B, n] float32, noise from ``generator``
     (which must live on x's device)."""
-    noise = torch.randn(x.shape, generator=generator, dtype=torch.float32,
-                        device=x.device)
-    std = torch.sqrt(_f32(noise_var(snr_db), x))
-    return (2.0 * x.to(torch.float32) - 1.0) + std * noise
+    return apply(x, draw(x.shape, generator, x.device), snr_db)
 
 
 def llr(y: torch.Tensor, snr_db) -> torch.Tensor:

@@ -20,24 +20,44 @@ from ldpc_decoders_tpu_torch.decoders.lp import LPDecoder
 from ldpc_decoders_tpu_torch.decoders.ml import MLBSC
 
 
+def draw(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The channel's draw for ``shape`` bits: float32 uniforms on [0, 1)
+    from ``generator`` (which must live on ``device``)."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=device)
+
+
+def apply(x: torch.Tensor, u: torch.Tensor, p) -> torch.Tensor:
+    """Flip each bit of x [B, n] in {0,1} where the draw ``u`` is < p."""
+    return (x + (u < p).to(x.dtype)) % 2
+
+
 def send(x: torch.Tensor, p,
          generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Flip each bit where a float32 uniform from ``generator`` (which must
     live on x's device) is < p. x [B, n] in {0,1} -> y [B, n] in {0,1}."""
-    u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
-                   device=x.device)
-    return (x + (u < p).to(x.dtype)) % 2
+    return apply(x, draw(x.shape, generator, x.device), p)
+
+
+def constants(p, device) -> tuple:
+    """(base,): log((1-p)/p) as the 0-dim float32 tensor on ``device`` that
+    ``llr`` computes (``ops/chunk_kernel.py`` hands it to its kernel)."""
+    pt = torch.full((), p, dtype=torch.float32, device=device)
+    return (torch.log1p(-pt) - torch.log(pt),)
 
 
 def llr(y: torch.Tensor, p) -> torch.Tensor:
-    pt = torch.full((), p, dtype=torch.float32, device=y.device)
-    base = torch.log1p(-pt) - torch.log(pt)
+    base, = constants(p, y.device)
     return base * (1.0 - 2.0 * y.to(torch.float32))
 
 
 class _LLRWrapped:
     """Adapts an LLR-domain decoder to channel symbols. ``llr_fn`` is the
-    channel's LLR map (this module's unless a channel passes its own)."""
+    channel's LLR map (this module's unless a channel passes its own).
+    ``decode`` takes the channel's symbols, ``decode_input`` the decoder's
+    own input, the LLRs (``takes``), as the runners' chunks make them."""
+
+    takes = "llr"
 
     def __init__(self, dec, llr_fn=None):
         self.dec = dec
@@ -45,7 +65,10 @@ class _LLRWrapped:
         self.llr = llr_fn or llr
 
     def decode(self, y, p, generator=None):
-        x_hat, iters = self.dec.decode(self.llr(y, p))
+        return self.decode_input(self.llr(y, p), p, generator)
+
+    def decode_input(self, gamma, p, generator=None):
+        x_hat, iters = self.dec.decode(gamma)
         return x_hat, {"iters": iters}
 
 
@@ -54,21 +77,24 @@ class _HostLLRWrapped(_LLRWrapped):
     package too; it says so with ``host_only``): LLRs on y's device, the
     decode on the host."""
 
-    def decode(self, y, p, generator=None):
-        gamma = self.llr(y, p).cpu().numpy()
-        return self.dec.decode_batch(gamma), {}
+    def decode_input(self, gamma, p, generator=None):
+        return self.dec.decode_batch(gamma.cpu().numpy()), {}
 
 
 class _MLWrapped:
-    """Adapts a codebook ML decoder (``cls``) to the channel's call shape."""
+    """Adapts a codebook ML decoder (``cls``) to the channel's call shape;
+    it takes the channel's symbols (``takes``)."""
 
     id_keys: list = []
+    takes = "sym"
 
     def __init__(self, cls, code, device=None):
         self.dec = cls(code, device=device)
 
     def decode(self, y, p, generator=None):
         return self.dec.decode(y, p, generator), {}
+
+    decode_input = decode
 
 
 def SPA(code, device=None, **kw):

@@ -42,6 +42,7 @@ from ldpc_decoders_tpu_torch.decoders.bec_spa import BECSPADecoder
 from ldpc_decoders_tpu_torch.decoders.bp import BPDecoder
 from ldpc_decoders_tpu_torch.harness.runner import MonteCarloRunner, RunConfig
 from ldpc_decoders_tpu_torch.harness.saver import Saver
+from ldpc_decoders_tpu_torch.ops import chunk_kernel
 from ldpc_decoders_tpu_torch.parallel.mesh import is_coordinator
 
 
@@ -102,20 +103,21 @@ class CapSweepRunner(MonteCarloRunner):
 
     def _chunk(self, param, gen: torch.Generator) -> torch.Tensor:
         """One super-batch -> the packed ``[2, K]`` tally (word errors and
-        bit errors per cap, ascending caps), on device."""
+        bit errors per cap, ascending caps), on device. Label 0 tallies the
+        channel symbols on the BEC and BSC, and every bit on biAWGN."""
         cfg = self.cfg
-        x = self._sample_x(gen, self.local_batch)
-        y = self.mod.send(x, param, gen)
-        soft = y if cfg.channel == "bec" else self.mod.llr(y, param)
+        raw = self.n_zero and cfg.channel != "biawgn"
+        if cfg.channel == "bec":
+            idx, y = self._transmit(param, gen, "sym")
+            soft = y
+        elif raw:
+            idx, (y, soft) = self._transmit(param, gen, "both")
+        else:
+            idx, soft = self._transmit(param, gen, "llr")
         x_hats, _ = self.dec.decode_multi_cap(soft, self.caps)
-        errs = (x_hats != x[None]).sum(dim=-1)               # [K', B]
-        if self.n_zero:
-            if cfg.channel == "biawgn":
-                errs0 = torch.full_like(errs[:1], self.code.get_n())
-            else:
-                errs0 = (y != x).sum(dim=-1)[None]           # bec: 2 != bit
-            errs = torch.cat([errs0, errs], dim=0)
-        return torch.stack([(errs > 0).sum(dim=-1), errs.sum(dim=-1)])
+        return chunk_kernel.tally(
+            x_hats, cfg.codeword, idx, self._cb, raw=y if raw else None,
+            all_wrong=bool(self.n_zero) and not raw)
 
     def run_param(self, param: float, gen: torch.Generator) -> list:
         cfg = self.cfg

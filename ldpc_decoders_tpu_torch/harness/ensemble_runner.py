@@ -52,6 +52,7 @@ from ldpc_decoders_tpu_torch.harness.runner import (
     start_host_copy,
 )
 from ldpc_decoders_tpu_torch.harness.saver import Saver
+from ldpc_decoders_tpu_torch.ops import chunk_kernel
 from ldpc_decoders_tpu_torch.parallel.mesh import is_coordinator, local_batch
 
 
@@ -109,17 +110,20 @@ class EnsembleMonteCarloRunner:
     # ------------------------------------------------------------------
     def _chunk(self, param, gens: list, active: list) -> torch.Tensor:
         """B words for each member of ``active`` -> the packed [2, A]
-        tally on the device."""
+        tally on the device. Each member's channel output is written into
+        its slice of the decoder's input."""
         cfg = self.cfg
-        x = torch.full((self.local_batch, self.n_var), cfg.codeword,
-                       dtype=torch.int32, device=self.device)
-        soft = []
-        for g in active:
-            y = self.mod.send(x, param, gens[g])
-            soft.append(y if cfg.channel == "bec" else self.mod.llr(y, param))
-        x_hat, _ = self.dec.decode(torch.stack(soft), members=active)
-        errs = (x_hat != x).sum(dim=-1)                      # [A, B]
-        return torch.stack([(errs > 0).sum(dim=-1), errs.sum(dim=-1)])
+        bec = cfg.channel == "bec"
+        shape = (self.local_batch, self.n_var)
+        soft = torch.empty((len(active), *shape),
+                           dtype=torch.int32 if bec else torch.float32,
+                           device=self.device)
+        for i, g in enumerate(active):
+            noise = self.mod.draw(shape, gens[g], self.device)
+            chunk_kernel.transmit(cfg.channel, noise, param, cfg.codeword,
+                                  want="sym" if bec else "llr", out=soft[i])
+        x_hat, _ = self.dec.decode(soft, members=active)
+        return chunk_kernel.tally(x_hat, cfg.codeword)
 
     def run_param(self, param: float, gens: list) -> list:
         cfg = self.cfg

@@ -2,8 +2,12 @@
 ``ldpc_decoders_tpu.harness.runner``).
 
 Each host-loop tick dispatches one super-batch chunk (sample -> transmit
--> decode -> tally) on the device. A chunk returns ONE packed ``[wec,
-bec]`` tally, extended by the iteration histogram (length
+-> decode -> tally) on the device: PyTorch draws the codebook rows
+(codeword -1) and the channel's noise from the point's generator, and the
+rest around the decode is two kernels (``ops/chunk_kernel.py``: C1 turns
+the codeword and the draw into the decoder's input, C2 tallies its
+decisions; their plain versions on the CPU). A chunk returns ONE packed
+``[wec, bec]`` tally, extended by the iteration histogram (length
 ``ITER_HIST_LEN``) for decoders that track it (ADMM); on a CUDA device it
 is copied without blocking into pinned host memory behind a CUDA event at
 dispatch time, so the host waits only when it consumes that chunk,
@@ -56,13 +60,14 @@ from ldpc_decoders_tpu_torch.channels import CHANNELS
 from ldpc_decoders_tpu_torch.channels.bsc import _LLRWrapped
 from ldpc_decoders_tpu_torch.codes import get_code
 from ldpc_decoders_tpu_torch.harness.saver import Saver
+from ldpc_decoders_tpu_torch.ops import chunk_kernel
 from ldpc_decoders_tpu_torch.parallel.bp_edge_sharded import (
     EdgeShardedBPDecoder,
 )
 from ldpc_decoders_tpu_torch.parallel.mesh import is_coordinator, local_batch
 from ldpc_decoders_tpu_torch.utils.profiler import LoopProfiler
 
-ITER_HIST_LEN = 2000    # iteration counts above it clip to the last bin
+ITER_HIST_LEN = chunk_kernel.HIST_LEN   # counts above it clip to the last bin
 
 
 def start_host_copy(tally: torch.Tensor) -> tuple:
@@ -180,6 +185,7 @@ class MonteCarloRunner:
         # Where the chunk tally is summed over the batch axis.
         self._device_sum = (mesh is not None and mesh.device_tally
                             and not self.host_only)
+        self._cb = None
         if cfg.codeword == -1:
             if self.code.cb is None:
                 raise ValueError("codeword -1 needs a code with a generator "
@@ -254,40 +260,38 @@ class MonteCarloRunner:
                       if cfg.data_dir and is_coordinator() else None)
 
     # ------------------------------------------------------------------
-    def _sample_x(self, gen: torch.Generator, batch: int) -> torch.Tensor:
-        if self.cfg.codeword == -1:
+    def _transmit(self, param, gen: torch.Generator, want: str) -> tuple:
+        """Draw a chunk's words and channel noise from ``gen`` (codeword -1:
+        the codebook rows first) and send them: (the rows ``idx`` or None,
+        what ``chunk_kernel.transmit`` returns for ``want``)."""
+        cfg, batch = self.cfg, self.local_batch
+        idx = None
+        if cfg.codeword == -1:
             idx = torch.randint(0, self._cb.shape[0], (batch,),
                                 generator=gen, device=self.device)
-            return self._cb[idx]
-        return torch.full((batch, self.code.get_n()), self.cfg.codeword,
-                          dtype=torch.int32, device=self.device)
+        noise = self.mod.draw((batch, self.code.get_n()), gen, self.device)
+        return idx, chunk_kernel.transmit(cfg.channel, noise, param,
+                                          cfg.codeword, idx, self._cb, want)
 
     def _chunk(self, param, gen: torch.Generator) -> torch.Tensor:
         """One super-batch -> the packed ``[wec, bec]`` tally (plus the
         iteration histogram for decoders that track it), on device."""
-        x = self._sample_x(gen, self.local_batch)
-        y = self.mod.send(x, param, gen)
-        x_hat, aux = self.dec.decode(y, param, gen)
-        errs = (x_hat != x).sum(dim=-1)
-        tally = torch.stack([(errs > 0).sum(), errs.sum()])
-        if self.track_hist:
-            # index_add_ into a fixed-length vector: torch.bincount would
-            # synchronize to size its output.
-            bins = aux["iters"].clamp(0, ITER_HIST_LEN - 1).long()
-            hist = torch.zeros(ITER_HIST_LEN, dtype=tally.dtype,
-                               device=tally.device)
-            hist.index_add_(0, bins, torch.ones_like(bins))
-            tally = torch.cat([tally, hist])
-        return tally
+        idx, inp = self._transmit(param, gen, self.dec.takes)
+        x_hat, aux = self.dec.decode_input(inp, param, gen)
+        return chunk_kernel.tally(
+            x_hat, self.cfg.codeword, idx, self._cb,
+            iters=aux["iters"] if self.track_hist else None)
 
     def _host_chunk(self, param, gen: torch.Generator) -> torch.Tensor:
-        """Host decoders (LP): sample on the device, decode on the host.
-        Returns the same packed ``[wec, bec]`` tally as the device chunks,
-        so ``consume`` does not care about the route."""
-        x = self._sample_x(gen, self.local_batch)
-        y = self.mod.send(x, param, gen)
-        x_hat, _ = self.dec.decode(y, param, gen)
-        x = x.cpu().numpy()
+        """Host decoders (LP): sample and send on the device, decode on the
+        host. Returns the same packed ``[wec, bec]`` tally as the device
+        chunks, so ``consume`` does not care about the route."""
+        idx, gamma = self._transmit(param, gen, "llr")
+        x_hat, _ = self.dec.decode_input(gamma, param, gen)
+        x = chunk_kernel.codeword_plane(
+            gamma.shape, self.cfg.codeword,
+            None if idx is None else idx.cpu(),
+            None if self._cb is None else self._cb.cpu(), "cpu").numpy()
         errs = (x_hat != x.astype(x_hat.dtype)).sum(axis=-1)
         return torch.tensor([(errs > 0).sum(), errs.sum()], dtype=torch.int64)
 

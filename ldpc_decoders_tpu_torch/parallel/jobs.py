@@ -33,6 +33,7 @@ def kernel_launches() -> dict:
         admm_kernel,
         admm_step,
         bec_kernel,
+        chunk_kernel,
         lt_kernel,
         mlp_kernel,
         msa_kernel,
@@ -55,7 +56,9 @@ def kernel_launches() -> dict:
             "project_rows": admm_step.project_rows_cuda.launches,
             "admm_iter_post": admm_step.admm_iter_post_cuda.launches,
             "mlp_forward": mlp_kernel.mlp_forward_cuda.launches,
-            "mlp_train": mlp_kernel.mlp_train_cuda.launches}
+            "mlp_train": mlp_kernel.mlp_train_cuda.launches,
+            "transmit": chunk_kernel.transmit_cuda.launches,
+            "tally": chunk_kernel.tally_cuda.launches}
 
 
 def _facts(out: dict, launches0: dict) -> dict:
@@ -124,15 +127,16 @@ def make_llr(code: str, channel: str, param: float, words: int, seed: int,
     """LLRs of ``words`` copies of codeword ``codeword`` (0 or 1) of
     ``code`` sent through ``channel`` at ``param``, from a generator
     seeded ``seed`` on ``device``: the same tensor in every process that
-    asks on the same kind of device."""
+    asks on the same kind of device (C1, ``ops/chunk_kernel.py``, on a
+    card)."""
     from ldpc_decoders_tpu_torch.channels import CHANNELS
     from ldpc_decoders_tpu_torch.codes import get_code
+    from ldpc_decoders_tpu_torch.ops import chunk_kernel
 
-    mod = CHANNELS[channel]
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    x = torch.full((words, get_code(code).get_n()), codeword,
-                   dtype=torch.int32, device=device)
-    return mod.llr(mod.send(x, param, gen), param)
+    noise = CHANNELS[channel].draw((words, get_code(code).get_n()), gen,
+                                   device)
+    return chunk_kernel.transmit(channel, noise, param, codeword)
 
 
 def edge_decode(code: str, variant: str, llr, device="cpu", **kw) -> dict:

@@ -1,7 +1,7 @@
 """Where the time of the port's Monte-Carlo step goes, on one CUDA device.
 
     python scripts/profile_torch_step.py [--step msa|bec|caps|admm|admm_mar]
-        [--batch 16384] [--out report.json]
+        [--batch 16384] [--out report.json] [--saver DIR]
     python scripts/profile_torch_step.py --campaign REG_BAD [--out report.json]
         [--max-words N] [--joint-ensemble]
 
@@ -16,11 +16,17 @@ The step, on LDPC(1200,3,6) unless it names another code:
 - ``admm_mar``: ADMM on margulis in converge mode (bound 8000), BSC at
   p=0.07 and 0.06, the MAR goldens' configuration (use ``--batch 2048``).
 
-For each point:
+``--step`` takes several steps, comma-separated (``msa,bec,caps,admm``),
+run one after the other in one process. For each point:
 
-1. ``torch.profiler`` over a steady window of the runner's chunk (sample
-   -> LLR -> decode -> tally): device time by kernel, and the device's
-   busy share of the window's wall time;
+1. ``torch.profiler`` over a steady window of the runner's dispatch (the
+   chunk: sample -> LLR -> decode -> tally, and the tally's copy to pinned
+   host memory): device time by kernel, and the device's busy share of the
+   window's wall time. The kernels are then split three ways: the decode
+   kernel(s), the port's other hand-written kernels around it (the
+   ``__global__`` functions of ``csrc/chunk.cu``), and every PyTorch launch
+   around it (copies and fills included), each of these by name with its
+   device ms and launches per chunk;
 2. the runner end to end (one packed tally per chunk): ``words_per_sec``
    over a fixed number of words;
 3. the decode kernel alone (CUDA events, two runs of 20 decodes) at the
@@ -39,6 +45,12 @@ were made with 1500000: deep points of REG_ENS's BSC min-sum leg see no
 error in that many); ``--joint-ensemble`` runs the ensemble cases through
 the joint route.
 
+With ``--saver DIR`` the script first runs the flagship CLI run of
+``chip_smoke.py``'s phase 4 (``main biawgn 1200_3_6_ldpc MSA --params 2.5
+--codeword 1 --min-wec 200 --bf16 --batch 16384``, seed 0) into ``DIR`` and
+prints its Saver file's ``tot``, ``wec`` and ``bec``: two trees that draw
+and decode alike print the same numbers.
+
 Every line carries the card's name and power limit.
 """
 
@@ -46,8 +58,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import glob
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -58,6 +72,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ldpc_decoders_tpu_torch import campaign  # noqa: E402
+from ldpc_decoders_tpu_torch import main as cli  # noqa: E402
 from ldpc_decoders_tpu_torch.channels import CHANNELS  # noqa: E402
 from ldpc_decoders_tpu_torch.harness import (  # noqa: E402
     CapSweepRunner,
@@ -97,6 +112,48 @@ def launch_geometry(step: str, g):
     if step == "bec":
         return bec_kernel.bec_geometry(*dims)
     return msa_kernel.msa_geometry(*dims, True)
+
+
+FLAGSHIP_ARGV = ["biawgn", "1200_3_6_ldpc", "MSA", "--params", "2.5",
+                 "--codeword", "1", "--min-wec", "200", "--bf16", "--batch",
+                 "16384"]
+
+
+def port_kernels() -> tuple:
+    """(decode kernels, kernels around the decode): the names of the
+    ``__global__`` functions of the port's sources, those of
+    ``csrc/chunk.cu`` (C1, C2) apart."""
+    names = {}
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__"
+                         r"\([^)]*\)\s*)?(\w+)\s*\(")
+    for path in glob.glob(os.path.join(_build.CSRC_DIR, "*.cu")):
+        with open(path) as fp:
+            for name in pattern.findall(fp.read()):
+                names[name] = os.path.basename(path)
+    around = {k for k, src in names.items() if src == "chunk.cu"}
+    return set(names) - around, around
+
+
+def kernel_class(key: str, decode: set, around: set) -> str:
+    """"decode", "around" (a hand-written kernel of the chunk) or
+    "pytorch" (any other launch: PyTorch's kernels, copies, fills)."""
+    words = set(re.findall(r"\w+", key))
+    if words & decode:
+        return "decode"
+    return "around" if words & around else "pytorch"
+
+
+def flagship_saver(out_dir: str, card: str) -> dict:
+    """Phase 4's flagship CLI run into ``out_dir``: its Saver file's tot,
+    wec and bec."""
+    cli.main(FLAGSHIP_ARGV + ["--console", "--data_dir", out_dir])
+    path, = glob.glob(os.path.join(out_dir, "*.json"))
+    with open(path) as fp:
+        saved = json.load(fp)
+    got = {k: saved[k]["2.5"] for k in ("tot", "wec", "bec")}
+    print(f"flagship Saver file {os.path.basename(path)}: tot {got['tot']} "
+          f"wec {got['wec']} bec {got['bec']} | {card}")
+    return got
 
 
 def ac_var(w: float, t: int) -> float:
@@ -169,11 +226,18 @@ def main() -> None:
                     help="with --campaign: words per sweep point at most")
     ap.add_argument("--joint-ensemble", action="store_true",
                     help="with --campaign: the joint ensemble route")
-    ap.add_argument("--step", choices=sorted(STEPS), default="msa")
+    ap.add_argument("--step", default="msa",
+                    help=f"one or more of {sorted(STEPS)}, comma-separated")
+    ap.add_argument("--saver", default=None,
+                    help="first run phase 4's flagship CLI run into this "
+                         "directory and print its tot, wec, bec")
     ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--chunks", type=int, default=40)
     ap.add_argument("--out", default=None, help="also write the report here")
     args = ap.parse_args()
+    steps = args.step.split(",")
+    if not set(steps) <= set(STEPS):
+        ap.error(f"--step: {steps} not all in {sorted(STEPS)}")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -183,21 +247,32 @@ def main() -> None:
         write_report(campaign_report(args.campaign, card, args.max_words,
                                      args.joint_ensemble), args.out)
         return
-    report = {"card": card, "step": args.step, "batch": args.batch,
-              "points": {}}
-    B = args.batch
-    cfg_kw, points, labels = STEPS[args.step]
+    report = {"card": card, "batch": args.batch, "steps": {}}
+    if args.saver:
+        report["flagship_saver"] = flagship_saver(args.saver, card)
+    for step in steps:
+        report["steps"][step] = profile_step(step, args.batch, args.chunks,
+                                             card)
+    write_report(report, args.out)
+
+
+def profile_step(step: str, B: int, n_chunks: int, card: str) -> dict:
+    """The step's profile, runner rate and decode time at each of its
+    points."""
+    decode_names, around_names = port_kernels()
+    report = {"points": {}}
+    cfg_kw, points, labels = STEPS[step]
     cfg_kw = dict({"code": "1200_3_6_ldpc"}, **cfg_kw)
     unit = "dB" if cfg_kw["channel"] == "biawgn" else "p"
     for snr in points:
         cfg = RunConfig(params=[snr],
-                        min_wec=10 ** 12, batch=B, max_words=B * args.chunks,
+                        min_wec=10 ** 12, batch=B, max_words=B * n_chunks,
                         device="cuda", log_freq=1e9, **cfg_kw)
         runner = (CapSweepRunner(cfg, labels) if labels
                   else MonteCarloRunner(cfg))
         gen = runner._generator(0)
         for _ in range(3):
-            runner._chunk(snr, gen)
+            runner._dispatch(snr, gen)
         torch.cuda.synchronize()
 
         acts = [torch.profiler.ProfilerActivity.CPU,
@@ -205,7 +280,7 @@ def main() -> None:
         n = 10
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            tallies = [runner._chunk(snr, gen) for _ in range(n)]
+            tallies = [runner._dispatch(snr, gen) for _ in range(n)]
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         del tallies
@@ -223,17 +298,30 @@ def main() -> None:
         point = {"step_ms": step_ms, "device_busy_ms": busy,
                  "idle_share": max(0.0, 1.0 - busy / step_ms),
                  "kernels": [{"name": k[:90], "ms_per_step": ms,
-                              "calls_per_step": c} for k, ms, c in rows]}
-        print(f"{snr} {unit} profile: step {step_ms:.4f} ms, device busy "
-              f"{busy:.4f} ms ({100 * busy / step_ms:.1f}%) | {card}")
-        for k, ms, c in rows[:12]:
-            print(f"    {ms:9.4f} ms  x{c:<3d} {k[:90]}")
+                              "calls_per_step": c,
+                              "class": kernel_class(k, decode_names,
+                                                    around_names)}
+                             for k, ms, c in rows]}
+        print(f"{step} {snr} {unit} profile: step {step_ms:.4f} ms, device "
+              f"busy {busy:.4f} ms ({100 * busy / step_ms:.1f}%) | {card}")
+        for cls, title in (("decode", "the decode"),
+                           ("around", "hand-written kernels around it"),
+                           ("pytorch", "PyTorch launches around it")):
+            mine = [r for r in point["kernels"] if r["class"] == cls]
+            ms = sum(r["ms_per_step"] for r in mine)
+            calls = sum(r["calls_per_step"] for r in mine)
+            point.setdefault("by_class", {})[cls] = {"ms": ms,
+                                                     "launches": calls}
+            print(f"  {title}: {ms:.4f} ms in {calls} launches per chunk")
+            for r in mine:
+                print(f"    {r['ms_per_step']:9.4f} ms  "
+                      f"x{r['calls_per_step']:<3d} {r['name']}")
 
         res = runner.run()
         # A cap sweep reports per label: take the largest cap's line.
         res = res[max(labels)][snr] if labels else res[snr]
         point["runner"] = dict(res)
-        print(f"{snr} {unit} runner: {res['tot']} words, wer "
+        print(f"{step} {snr} {unit} runner: {res['tot']} words, wer "
               f"{res['wer']:.6f}, {res['words_per_sec']:.1f} cw/s | {card}")
 
         mod = CHANNELS[cfg.channel]
@@ -246,9 +334,9 @@ def main() -> None:
                 runner.dec.decode_multi_cap(inp, runner.caps)
         else:
             decode = lambda: runner.dec.dec.decode(inp)  # noqa: E731
-        geo = launch_geometry(args.step, runner.code.graph)
+        geo = launch_geometry(step, runner.code.graph)
         point["geometry"] = geo._asdict()
-        print(f"{snr} {unit} launch geometry: {geo} | {card}")
+        print(f"{step} {snr} {unit} launch geometry: {geo} | {card}")
         decode_ms = []
         decode()
         for _ in range(2):
@@ -261,10 +349,9 @@ def main() -> None:
             torch.cuda.synchronize()
             decode_ms.append(start.elapsed_time(stop) / 20)
         point["decode_ms"] = decode_ms
-        print(f"{snr} {unit} decode ms: {decode_ms} | {card}")
+        print(f"{step} {snr} {unit} decode ms: {decode_ms} | {card}")
         report["points"][str(snr)] = point
-
-    write_report(report, args.out)
+    return report
 
 
 def write_report(report: dict, out) -> None:

@@ -992,3 +992,130 @@ def test_admma_eval_and_apprx_launch_their_kernels(cuda):
                                          n_edge=code.graph.n_edge,
                                          z_update=plain_z)
         assert float((xp != x_hat).any(dim=1).float().mean()) <= 0.01
+
+
+# ----------------------------------------------------------------------
+# The chunk's passes around the decode: C1 transmit and C2 tally
+# (csrc/chunk.cu) against their plain versions.
+# ----------------------------------------------------------------------
+
+CHUNK_PARAMS = {"biawgn": (1.5, 3.0), "bsc": (0.05, 0.3), "bec": (0.3, 0.45)}
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def _chunk_words(code_name, codeword, B, device, seed):
+    """(idx, cb) for codeword -1 (rows of the code's codebook), else
+    (None, None)."""
+    if codeword != -1:
+        return None, None
+    cb = torch.as_tensor(get_code(code_name).cb, dtype=torch.int32,
+                         device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.randint(0, cb.shape[0], (B,), generator=gen, device=device)
+    return idx, cb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 16384])
+@pytest.mark.parametrize("channel", ["biawgn", "bsc", "bec"])
+def test_transmit_kernel_bit_equal_plain(cuda, channel, B):
+    """C1 == its plain version bit for bit, at two parameters, codewords
+    0 and 1 on LDPC(1200,3,6) (16-byte vectors), -1 on Hamming(7,4)
+    (element by element), in each output mode and into ``out``; and on a
+    draw that does not start 16-byte aligned."""
+    from ldpc_decoders_tpu_torch.channels import CHANNELS
+    from ldpc_decoders_tpu_torch.ops import chunk_kernel as ck
+
+    mod = CHANNELS[channel]
+    for param in CHUNK_PARAMS[channel]:
+        for codeword, code_name in ((0, "1200_3_6_ldpc"),
+                                    (1, "1200_3_6_ldpc"),
+                                    (-1, "7_4_hamming")):
+            V = get_code(code_name).get_n()
+            idx, cb = _chunk_words(code_name, codeword, B, cuda, B)
+            gen = torch.Generator(device=cuda).manual_seed(int(param * 100))
+            noise = mod.draw((B, V), gen, cuda)
+            kw = dict(codeword=codeword, idx=idx, cb=cb)
+            for want in ck.WANTS:
+                before = ck.transmit_cuda.launches
+                got = ck.transmit(channel, noise, param, want=want, **kw)
+                assert ck.transmit_cuda.launches == before + 1
+                plain = ck.transmit_plain(channel, noise, param, want=want,
+                                          **kw)
+                torch.cuda.synchronize()
+                if want == "both":
+                    assert all(_same_bits(g, p) for g, p in zip(got, plain))
+                else:
+                    assert _same_bits(got, plain), (param, codeword, want)
+            out = torch.empty((2, B, V), device=cuda)
+            ck.transmit(channel, noise, param, out=out[1], **kw)
+            assert _same_bits(out[1], ck.transmit_plain(channel, noise,
+                                                        param, **kw))
+    flat = torch.empty(B * 1200 + 1, device=cuda)
+    shifted = flat[1:].view(B, 1200)
+    shifted.copy_(mod.draw((B, 1200), torch.Generator(device=cuda)
+                           .manual_seed(1), cuda))
+    param = CHUNK_PARAMS[channel][0]
+    assert ck._vec(1200, shifted) == 1
+    for want in ("llr", "sym"):
+        assert _same_bits(ck.transmit(channel, shifted, param, 1, want=want),
+                          ck.transmit_plain(channel, shifted, param, 1,
+                                            want=want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 16384])
+def test_tally_kernel_equals_plain(cuda, B):
+    """C2 == its plain version: one plane with and without the 2000-bin
+    histogram (counts below 0, at 0, 1999 and above), float decisions
+    (ADMM's pseudo-codewords), codeword -1 on Hamming(7,4); P = 7 cap
+    planes after label 0 as the symbols (BSC, BEC) or all wrong (biAWGN);
+    P = 10 members."""
+    from ldpc_decoders_tpu_torch.ops import chunk_kernel as ck
+
+    gen = torch.Generator(device=cuda).manual_seed(B)
+
+    def decisions(shape, codeword, rate):
+        flips = torch.rand(shape, generator=gen, device=cuda) < rate
+        flips[..., ::3, :] = False
+        return (codeword ^ flips.to(torch.int32)).contiguous()
+
+    def same(*args, **kw):
+        before = ck.tally_cuda.launches
+        got = ck.tally(*args, **kw)
+        assert ck.tally_cuda.launches == before + 1
+        want = ck.tally_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64 and torch.equal(got, want), (got,
+                                                                     want)
+        return got
+
+    V = 1200
+    iters = torch.randint(0, 60, (B,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    iters[:4] = torch.tensor([-3, 0, 1999, 2500], device=cuda)[:B]
+    for codeword in (0, 1):
+        x_hat = decisions((B, V), codeword, 0.002)
+        same(x_hat, codeword)
+        t = same(x_hat, codeword, iters=iters)
+        assert int(t[2:].sum()) == B
+        same(x_hat.float() * 0.75, codeword)          # fractional values
+        planes = decisions((7, B, V), codeword, 0.002)
+        sym = decisions((B, V), codeword, 0.05)
+        sym[::2, ::5] = 2                              # erasures
+        same(planes, codeword)
+        same(planes, codeword, raw=sym)
+        t = same(planes, codeword, all_wrong=True)
+        assert int(t[0, 0]) == B and int(t[1, 0]) == B * V
+        same(decisions((10, B, V), codeword, 0.003), codeword)
+    idx, cb = _chunk_words("7_4_hamming", -1, B, cuda, 3)
+    x = cb[idx]
+    flips = (torch.rand(x.shape, generator=gen, device=cuda) < 0.1)
+    x_hat = (x ^ flips.to(torch.int32)).contiguous()
+    same(x_hat, -1, idx, cb, iters=iters)
+    same(torch.stack([x_hat, x, x_hat]), -1, idx, cb, raw=x_hat)

@@ -251,7 +251,7 @@ def test_packed_tally_shapes_admm_and_host_chunk():
     assert tally.dtype == torch.int64 and int(tally[2:].sum()) == 256
     assert 0 < int(tally[0]) < 256
     # iteration counts beyond the last bin clip into it
-    admm.dec.decode = lambda y, p, g: (
+    admm.dec.decode_input = lambda llr, p, g: (
         torch.ones((256, 7), dtype=torch.int32),
         {"iters": torch.full((256,), 2500, dtype=torch.int32)})
     tally, _ = admm._dispatch(0.1, admm._generator(0))
