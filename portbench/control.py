@@ -1,0 +1,81 @@
+"""The control of the comparison that decides ``correct``: the plain
+reference put in the program's place and computed in the nearest precision
+below the configuration's, compared with the reference as a run compares
+the program. Each of the cell's numbers must come out above its limit on
+some number for the control to fail, as it has to.
+
+- min-sum with bfloat16 messages: the control's messages are float8
+  (e4m3);
+- ADMM in float32: the control rounds the x-update's output, the solution
+  plane x, to bfloat16 (half its bytes), the rest float32. ADMM wholly in
+  bfloat16 never meets eps = 1e-5: every word would run to the 8000 cap.
+
+    python3 -m portbench.control --workload <name> --seeds 1,2,3
+
+runs on the card at the cell's own sizes (a point each seed, or a whole
+sweep's points with Saver values) and prints one JSON line per seed; the
+benchmark's own runs never run it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+from portbench import check, spec
+
+LOWER = {"MSA": "float8_e4m3fn", "ADMM": "bfloat16"}
+
+
+def control_numbers(cell: dict, seed: int, device: str,
+                    overrides: dict = None) -> dict:
+    """The cell's numbers with the control in the program's place: the
+    point (or, where the cell writes Saver files, one point of each
+    parameter) that a run at ``seed`` would check first."""
+    from portbench.run import merged
+
+    config, traffic = merged(cell, overrides or {})
+    tables = check.load_tables(spec.ROOT, config, device)
+    low = LOWER[config["run_config"]["decoder"]]
+    n = len(traffic["points"])
+    rng = np.random.default_rng([seed, check.SAMPLE_SALT])
+    first = int(rng.integers(0, 16 * n))
+    idxs = ([first - first % n + j for j in range(n)] if traffic.get("saver")
+            else [first])
+    tally = hist = saved = 0
+    for idx in idxs:
+        param = traffic["points"][idx % n]
+        ref = check.replay_point(config, traffic, tables, seed, idx, param,
+                                 device)
+        got = check.replay_point(config, traffic, tables, seed, idx, param,
+                                 device, precision=low)
+        t, h = check.diffs(got, ref)
+        tally, hist = tally + t, hist + h
+        want, have = (check.status(r, tables.n_var) for r in (ref, got))
+        saved += sum(int(have.get(k) != v) for k, v in want.items())
+    nums = {"tally_diff": tally}
+    if config["run_config"]["decoder"] == "ADMM":
+        nums["hist_diff"] = hist
+    if traffic.get("saver"):
+        nums["saver_diff"] = saved
+    return {"seed": seed, "points": idxs, "precision": low, "numbers": nums,
+            "fails": any(v > check.LIMITS[k] for k, v in nums.items())}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="the comparison's control")
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seeds", required=True)
+    args = p.parse_args(argv)
+    cell = spec.cell(spec.benchmark(), args.workload)
+    for seed in (int(s) for s in args.seeds.split(",")):
+        out = control_numbers(cell, seed, "cuda")
+        print(json.dumps(dict(out, workload=args.workload)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
