@@ -65,9 +65,10 @@ from ldpc_decoders_tpu_torch.parallel.bp_edge_sharded import (
     EdgeShardedBPDecoder,
 )
 from ldpc_decoders_tpu_torch.parallel.mesh import is_coordinator, local_batch
-from ldpc_decoders_tpu_torch.utils.profiler import LoopProfiler
+from ldpc_decoders_tpu_torch.utils import profiler
 
 ITER_HIST_LEN = chunk_kernel.HIST_LEN   # counts above it clip to the last bin
+PROFILE_FREQ = 20   # chunks of a point between ``--profile`` summaries
 
 
 def start_host_copy(tally: torch.Tensor) -> tuple:
@@ -133,7 +134,7 @@ class RunConfig:
     max_words: Optional[int] = None   # safety cap per sweep point
     data_dir: Optional[str] = None
     cache_dir: Optional[str] = None   # ADMMA checkpoints ("cache" if None)
-    profile: bool = False             # LoopProfiler per-section timings
+    profile: bool = False             # log span times every 20 chunks
     # BP message type, "float32" or "bfloat16": the kernel of that type
     # runs; nothing downgrades f32 to bf16 behind the caller's back.
     msg_dtype: str = "float32"
@@ -186,6 +187,7 @@ class MonteCarloRunner:
         self._device_sum = (mesh is not None and mesh.device_tally
                             and not self.host_only)
         self._cb = None
+        self._profile = None   # the recorder ``run`` keeps on for ``profile``
         if cfg.codeword == -1:
             if self.code.cb is None:
                 raise ValueError("codeword -1 needs a code with a generator "
@@ -311,6 +313,14 @@ class MonteCarloRunner:
 
     # ------------------------------------------------------------------
     def run_param(self, param: float, gen: torch.Generator) -> OrderedDict:
+        """One sweep point to ``min_wec`` word errors (or ``max_words``),
+        its Saver entry written: the point's status. Inside a ``point``
+        span of the recorder that is on (``utils/profiler.py``)."""
+        profiler.follow_torch()
+        with profiler.span("point", param):
+            return self._run_param(param, gen)
+
+    def _run_param(self, param: float, gen: torch.Generator) -> OrderedDict:
         cfg = self.cfg
         tot = wec = bec = 0
         hist = np.zeros(ITER_HIST_LEN, dtype=np.int64)
@@ -340,20 +350,22 @@ class MonteCarloRunner:
             return vals
 
         def log_status():
-            v = status()
-            self.log.info(", ".join(
-                f"{k.upper()}:{v[k]}" for k in
-                ("tot", "wec", "wer", "bec", "ber", "words_per_sec")))
-            if self.saver:
-                self.saver.add(param, v)
+            with profiler.span("log"):
+                v = status()
+                self.log.info(", ".join(
+                    f"{k.upper()}:{v[k]}" for k in
+                    ("tot", "wec", "wer", "bec", "ber", "words_per_sec")))
+                if self.saver:
+                    self.saver.add(param, v)
 
         def consume():
             nonlocal tot, wec, bec, hist, t_warm, tot_warm, consumed
             host, event = pending.popleft()
-            if event is not None:
-                event.synchronize()
-            if self.mesh is not None and not self._device_sum:
-                self.mesh.host_sum(host, "batch")
+            with profiler.span("wait"):
+                if event is not None:
+                    event.synchronize()
+                if self.mesh is not None and not self._device_sum:
+                    self.mesh.host_sum(host, "batch")
             arr = host.numpy()
             consumed += 1
             wec += int(arr[0])
@@ -373,20 +385,19 @@ class MonteCarloRunner:
             return pipeline_depth(tick, depth, np.array([wec]),
                                   np.array([consumed]), cfg.min_wec)
 
-        prof = LoopProfiler(self.log, dump_freq=20 if cfg.profile else 0)
         chunk_i = 0
         while wec < cfg.min_wec:
-            with prof.start():
-                chunk_i += 1
-                with prof.tag("dispatch"):
-                    pending.append(self._dispatch(param, gen))
-                while len(pending) >= effective_depth(chunk_i):
-                    with prof.tag("consume"):
-                        consume()
-                if time.time() - t_log > cfg.log_freq:
-                    t_log = time.time()
-                    with prof.tag("log"):
-                        log_status()
+            chunk_i += 1
+            with profiler.span("dispatch"):
+                pending.append(self._dispatch(param, gen))
+            while len(pending) >= effective_depth(chunk_i):
+                consume()
+            if time.time() - t_log > cfg.log_freq:
+                t_log = time.time()
+                log_status()
+            if self._profile is not None and chunk_i % PROFILE_FREQ == 0:
+                self.log.info("Summary at[%d] for[%d]: [%s]", chunk_i,
+                              PROFILE_FREQ, self._profile.summary())
             if cfg.max_words and tot + cfg.batch * len(pending) >= cfg.max_words:
                 self.log.warning("max_words cap hit at %d", tot)
                 break
@@ -395,15 +406,26 @@ class MonteCarloRunner:
             consume()
         self.last_dispatch_stats = {"dispatched": chunk_i,
                                     "consumed": consumed}
+        profiler.count("chunks_dispatched", chunk_i)
+        profiler.count("chunks_consumed", consumed)
         log_status()
         return status()
 
     def run(self) -> dict:
-        """Full sweep. Returns {param: metrics}."""
-        results = {}
-        for idx, param in enumerate(self.cfg.params):
-            self.log.info("Starting parameter: %f", param)
-            results[param] = self.run_param(param, self._generator(idx))
+        """Full sweep. Returns {param: metrics}. With ``profile`` (and no
+        recorder on already) a recorder is on for the sweep, and every
+        ``PROFILE_FREQ`` chunks of a point its summary is logged."""
+        if self.cfg.profile and profiler.active() is None:
+            self._profile = profiler.enable()
+        try:
+            results = {}
+            for idx, param in enumerate(self.cfg.params):
+                self.log.info("Starting parameter: %f", param)
+                results[param] = self.run_param(param, self._generator(idx))
+        finally:
+            if self._profile is not None:
+                self._profile = None
+                profiler.disable()
         self.log.info("Done!")
         return results
 

@@ -11,6 +11,7 @@ import json
 import os
 from collections import OrderedDict
 
+from ldpc_decoders_tpu_torch.utils import profiler
 from ldpc_decoders_tpu_torch.utils.file import load_json, make_dir_if_not_exists
 
 
@@ -22,14 +23,15 @@ class Saver:
         self.file_path = os.path.join(data_dir, f"{file_name}.json")
 
     def add(self, param, val_dict) -> None:
-        data = load_json(self.file_path)
-        if data is None:
-            data = OrderedDict(self.dict)
+        with profiler.span("saver"):
+            data = load_json(self.file_path)
+            if data is None:
+                data = OrderedDict(self.dict)
+                for key in val_dict:
+                    data[key] = {}
             for key in val_dict:
-                data[key] = {}
-        for key in val_dict:
-            data.setdefault(key, {})[str(param)] = val_dict[key]
-        self._write(data)
+                data.setdefault(key, {})[str(param)] = val_dict[key]
+            self._write(data)
 
     def add_all(self, val_dict) -> None:
         """Rewrite the file as the run ids plus ``val_dict`` (the LT CLI's

@@ -131,7 +131,8 @@ def setup_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fixed-pipeline", action="store_true",
                         help="disable the adaptive pipeline fill")
     parser.add_argument("--profile", action="store_true",
-                        help="log per-section LoopProfiler timings")
+                        help="log the runner's span times (ms) and chunk "
+                             "counts every 20 chunks of a point")
     parser.add_argument("--presort", choices=["auto", "on", "off"],
                         default="auto",
                         help="the JAX ADMM kernel's probe-and-sort; accepted "
