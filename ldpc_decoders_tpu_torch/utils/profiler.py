@@ -20,8 +20,10 @@ read, no logging call, no allocation.
 The runner's spans (``harness/runner.py``, ``harness/saver.py``): ``point``
 (one ``run_param``, holding its parameter), ``dispatch`` (draw, C1, decode,
 C2, the pinned copy's enqueue), ``wait`` (a chunk's event and host sum),
-``log`` (``status`` and the log line), ``saver`` (``Saver.add``); its
-counters: ``chunks_dispatched`` and ``chunks_consumed`` of each point.
+``log`` (``status`` and the log line), ``saver`` (``Saver.add``) and in
+it ``saver.write`` (the file's open, write, close and rename); its
+counters: ``chunks_dispatched`` and ``chunks_consumed`` of each point, and
+``saver_reloads`` (each ``Saver.add`` that reads the file).
 """
 
 from __future__ import annotations

@@ -3,9 +3,12 @@
 
 - with no recorder on, a span site records nothing and reads no clock;
 - spans nest with their parents and sweep points, on ``time.perf_counter``;
-- ``Saver.add`` is one ``saver`` span; a CPU ``run_param`` records
-  ``point``, ``dispatch``, ``wait``, ``log`` and ``saver``, and counts the
-  chunks ``last_dispatch_stats`` holds;
+- ``Saver.add`` is one ``saver`` span holding one ``saver.write``, and
+  counts ``saver_reloads`` only where it reads the file; a CPU
+  ``run_param`` records ``point``, ``dispatch``, ``wait``, ``log`` and
+  ``saver``, and counts the chunks ``last_dispatch_stats`` holds;
+- ``log``'s self time (``portbench/spans.py``) is less its direct children
+  alone, so ``saver.write`` inside ``saver`` is not taken off twice;
 - a collection is a ``gc`` span while a recorder is on, and not after;
 - ``RunConfig(profile=True)`` logs a summary every 20 chunks of a point;
 - ``follow_torch`` keeps a recorder on while a torch profiler collects.
@@ -14,12 +17,14 @@
 import gc
 import logging
 import time
+from types import SimpleNamespace
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from ldpc_decoders_tpu_torch.harness import MonteCarloRunner, RunConfig, Saver  # noqa: E402
+from portbench import spans as portbench_spans  # noqa: E402
 from ldpc_decoders_tpu_torch.harness.runner import point_generator  # noqa: E402
 from ldpc_decoders_tpu_torch.utils import profiler  # noqa: E402
 from ldpc_decoders_tpu_torch.utils.profiler import Span  # noqa: E402
@@ -104,8 +109,38 @@ def test_spans_nest_with_parents_and_points_on_perf_counter():
 
 def test_saver_add_is_one_saver_span(tmp_path):
     rec = profiler.enable()
-    Saver(str(tmp_path), [("code", "c")]).add(1.0, {"tot": 1, "wer": 0.5})
-    assert [s.name for s in _spans(rec) if s.name != "gc"] == ["saver"]
+    saver = Saver(str(tmp_path), [("code", "c")])
+    saver.add(1.0, {"tot": 1, "wer": 0.5})
+    saver.add(2.0, {"tot": 2, "wer": 0.25})
+    spans = [s for s in _spans(rec) if s.name != "gc"]
+    assert [s.name for s in spans] == ["saver.write", "saver"] * 2
+    for write, sv in zip(spans[0::2], spans[1::2]):
+        assert (write.parent, sv.parent) == (sv.id, -1)
+        assert sv.start <= write.start <= write.end <= sv.end
+    assert rec.counters == {"saver_reloads": 1}
+
+
+def test_log_self_time_is_less_its_direct_children_alone(tmp_path):
+    runner = _runner(tmp_path, chunks=3)
+    rec = profiler.enable()
+    _run_point(runner)
+    profiler.disable()
+    spans = _spans(rec)
+    by_id = {s.id: s for s in spans}
+    logs = [s for s in spans if s.name == "log"]
+    writes = [s for s in spans if s.name == "saver.write"]
+    assert logs and len(writes) == sum(s.name == "saver" for s in spans)
+    assert all(by_id[w.parent].name == "saver" for w in writes)
+    ctx = SimpleNamespace(points=[1.0], t_open=min(s.start for s in spans),
+                          t_close=max(s.end for s in spans))
+    children = [s for s in spans if s.parent in {lg.id for lg in logs}]
+    assert {s.name for s in children} <= {"saver", "gc"}
+    want = sum(s.end - s.start for s in logs) - sum(
+        s.end - s.start for s in children)
+    assert portbench_spans.ms_per_point(ctx, "log", self_time=True) == (
+        pytest.approx(1e3 * want))
+    assert portbench_spans.ms_per_point(ctx, "saver") == pytest.approx(
+        1e3 * sum(s.end - s.start for s in spans if s.name == "saver"))
 
 
 def test_run_param_records_the_runner_spans_and_chunk_counts(tmp_path):
@@ -123,7 +158,8 @@ def test_run_param_records_the_runner_spans_and_chunk_counts(tmp_path):
     assert all(s.parent in logs for s in _spans(rec) if s.name == "saver")
     stats = runner.last_dispatch_stats
     assert rec.counters == {"chunks_dispatched": stats["dispatched"],
-                            "chunks_consumed": stats["consumed"]}
+                            "chunks_consumed": stats["consumed"],
+                            "saver_reloads": 1}
     assert stats["dispatched"] == res["tot"] // BATCH == 5
     assert sum(s.name == "dispatch" for s in _spans(rec)) == 5
 
