@@ -4,6 +4,11 @@ points, drawn from the seed, replayed by the plain reference
 number; where the cell writes Saver files, every value the file holds for
 the points that wrote it last.
 
+On several ranks, every rank replays the same points, each its own stream
+at its share of the batch, with the tallies summed over the ranks at each
+consume (``reference/replay.py``); the sums are compared with the point's
+summed tallies, which every rank holds.
+
 Each number compared is a count of differences, with the limit 0:
 
 - ``tally_diff``: |tot - tot'| + |wec - wec'| + |bec - bec'| summed over
@@ -23,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from portbench.ranks import ONE, Ranks
 from portbench.reference import admm, codes, minsum, replay, seeding
 
 LIMITS = {"tally_diff": 0, "hist_diff": 0, "saver_diff": 0}
@@ -55,18 +61,21 @@ def load_tables(root: str, config: dict, device):
 
 
 def replay_point(config: dict, traffic: dict, tables, seed: int, idx: int,
-                 param: float, device, precision: Optional[str] = None
-                 ) -> dict:
+                 param: float, device, precision: Optional[str] = None,
+                 ranks: Ranks = ONE) -> dict:
     rc = config["run_config"]
     return replay.replay_point(
         channel=rc["channel"], codeword=rc["codeword"], param=param,
         batch=rc["batch"], n_var=tables.n_var,
-        gen=seeding.point_generator(device, seed, idx),
+        gen=seeding.point_generator(device, seed, idx, ranks.rank,
+                                    ranks.size),
         decode=decoder(config, tables, precision),
         min_wec=int(traffic["min_wec"]), max_words=traffic.get("max_words"),
         pipeline=rc.get("pipeline", 4),
         adaptive=rc.get("adaptive_pipeline", True),
-        track_hist=rc["decoder"] == "ADMM")
+        track_hist=rc["decoder"] == "ADMM",
+        rank_batch=rc["batch"] // ranks.size,
+        host_sum=ranks.sum if ranks.size > 1 else None)
 
 
 def sample(points: list, seed: int, k: int) -> list:
@@ -123,23 +132,25 @@ def saver_diff(path: str, refs: dict, n_var: int) -> int:
 
 
 def check(points: list, config: dict, traffic: dict, seed: int, root: str,
-          device, saver_path: Optional[str]) -> dict:
+          device, saver_path: Optional[str], ranks: Ranks = ONE) -> dict:
     """The numbers compared, each with its limit, and the reference's
-    counts on the words it decoded (for the work counts)."""
+    counts on the words it decoded (this rank's words, for the work
+    counts). Every rank picks the same points; only the rank that holds
+    the Saver file (``saver_path``) compares it."""
     tables = load_tables(root, config, device)
     picked = {p["idx"]: p for p in sample(points, seed, CHECK_POINTS)}
-    if saver_path:
+    if traffic.get("saver"):
         picked.update({p["idx"]: p for p in last_written(points)})
     refs, tally, hist, failed = {}, 0, 0, 0
     words = iters = 0
     tail_words = tail_iters = 0
     for idx, p in sorted(picked.items()):
         ref = replay_point(config, traffic, tables, seed, idx, p["param"],
-                           device)
+                           device, ranks=ranks)
         refs[idx] = ref
         t, h = diffs(p, ref)
         tally, hist, failed = tally + t, hist + h, failed + int(t + h > 0)
-        words += ref["chunks"] * config["run_config"]["batch"]
+        words += ref["chunks"] * config["run_config"]["batch"] // ranks.size
         iters += ref["iters_sum"]
         tail_words += ref.get("tail_words", 0)
         tail_iters += ref.get("tail_iters", 0)

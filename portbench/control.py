@@ -14,7 +14,10 @@ some number for the control to fail, as it has to.
 
 runs on the card at the cell's own sizes (a point each seed, or a whole
 sweep's points with Saver values) and prints one JSON line per seed; the
-benchmark's own runs never run it.
+benchmark's own runs never run it. A cell on several ranks replays each
+rank's stream in a process of its own, the tallies summed over gloo, as a
+run's check does; the ranks take a card each where there are enough, and
+share one otherwise.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import sys
 import numpy as np
 
 from portbench import check, spec
+from portbench.ranks import ONE, Ranks
 
 LOWER = {"MSA": "float8_e4m3fn", "ADMM": "bfloat16"}
 
@@ -35,6 +39,23 @@ def control_numbers(cell: dict, seed: int, device: str,
     """The cell's numbers with the control in the program's place: the
     point (or, where the cell writes Saver files, one point of each
     parameter) that a run at ``seed`` would check first."""
+    if cell["chips"] == 1:
+        return _numbers(cell, seed, device, overrides, ONE)
+    from ldpc_decoders_tpu_torch.parallel import mesh
+
+    return mesh.spawn("portbench.control:rank_numbers", cell["chips"],
+                      (cell, seed, device, overrides), device=device,
+                      backend="gloo")[0]
+
+
+def rank_numbers(cell: dict, seed: int, device: str,
+                 overrides: dict) -> dict:
+    """``control_numbers`` on one rank of ``mesh.spawn``'s group."""
+    return _numbers(cell, seed, device, overrides, Ranks.joined())
+
+
+def _numbers(cell: dict, seed: int, device: str, overrides: dict,
+             ranks: Ranks) -> dict:
     from portbench.run import merged
 
     config, traffic = merged(cell, overrides or {})
@@ -49,9 +70,9 @@ def control_numbers(cell: dict, seed: int, device: str,
     for idx in idxs:
         param = traffic["points"][idx % n]
         ref = check.replay_point(config, traffic, tables, seed, idx, param,
-                                 device)
+                                 device, ranks=ranks)
         got = check.replay_point(config, traffic, tables, seed, idx, param,
-                                 device, precision=low)
+                                 device, precision=low, ranks=ranks)
         t, h = check.diffs(got, ref)
         tally, hist = tally + t, hist + h
         want, have = (check.status(r, tables.n_var) for r in (ref, got))

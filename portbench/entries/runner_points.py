@@ -3,7 +3,9 @@ CLI (``main.py``) and ``campaign.py`` both end in.
 
 Point ``i`` of a run at ``seed`` takes the ``i``-th parameter of the
 traffic's list (cycling) and draws from the runner's own generator of
-``(seed, i)``, so every point decodes fresh words. The configuration's
+``(seed, i)``, so every point decodes fresh words. On a batch mesh
+(``mesh``, one process per rank) the runner is the CLI's ``--mesh`` runner
+and rank ``r`` of ``N`` draws from ``(seed, i, r, N)``. The configuration's
 ``run_config`` holds the ``RunConfig`` fields it sets; the traffic sets
 ``min_wec``, ``max_words`` and whether Saver files are written. Logs go,
 as the CLI's do, to ``test.log`` in the run's work directory, and Saver
@@ -40,11 +42,7 @@ def configure_logging(workdir: str) -> None:
 
 class Session:
     def __init__(self, config: dict, traffic: dict, seed: int, device: str,
-                 workdir: str):
-        if int(config.get("ranks", 1)) != 1:
-            raise ValueError("runner_points runs one rank; a cell on several "
-                             "ranks needs the mesh path, which this entry "
-                             "does not drive yet")
+                 workdir: str, mesh=None):
         configure_logging(workdir)
         self.points = [float(p) for p in traffic["points"]]
         self.seed = int(seed)
@@ -57,8 +55,10 @@ class Session:
             data_dir=(os.path.join(workdir, "data") if traffic.get("saver")
                       else None),
             cache_dir=os.path.join(workdir, "cache"))
-        self.runner = MonteCarloRunner(cfg)
-        self.batch = cfg.batch
+        self.runner = MonteCarloRunner(cfg, mesh)
+        self.rank = ((mesh.index("batch"), mesh.width("batch"))
+                     if mesh is not None else ())
+        self.batch = self.runner.local_batch
         self.track_hist = self.runner.track_hist
         self.saver_path = (self.runner.saver.file_path
                            if self.runner.saver else None)
@@ -78,7 +78,7 @@ class Session:
 
     def run_point(self, i: int) -> dict:
         param = self.param(i)
-        gen = point_generator(self.runner.device, self.seed, i)
+        gen = point_generator(self.runner.device, self.seed, i, *self.rank)
         res = self.runner.run_param(param, gen)
         out = {"param": param, "tot": res["tot"], "wec": res["wec"],
                "bec": res["bec"]}
@@ -90,5 +90,5 @@ class Session:
         self.runner = None
 
 
-def open_session(config, traffic, seed, device, workdir) -> Session:
-    return Session(config, traffic, seed, device, workdir)
+def open_session(config, traffic, seed, device, workdir, mesh=None) -> Session:
+    return Session(config, traffic, seed, device, workdir, mesh)

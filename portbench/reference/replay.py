@@ -14,6 +14,12 @@ decoded by the plain reference, consumed under the runner's rules:
   the histogram of iteration counts in 2000 bins (the last one takes every
   count above it).
 
+On several ranks along the batch, each rank replays its own stream at its
+share of the batch (``rank_batch``), and at each consume the chunk's tally
+is summed over the ranks (``host_sum``) before it counts: every rank then
+takes the same stop and pipeline decisions from the same sums, and ``tot``
+counts the whole batch.
+
 When the host first waits on a chunk, every chunk dispatched by then is
 drawn, in order, and decoded in one batch: the reference decodes what the
 runner has in flight, and nothing that the point never consumes.
@@ -54,13 +60,17 @@ def tally(x_hat: torch.Tensor, codeword: int,
 def replay_point(*, channel: str, codeword: int, param: float, batch: int,
                  n_var: int, gen: torch.Generator, decode: Callable,
                  min_wec: int, max_words: Optional[int], pipeline: int,
-                 adaptive: bool, track_hist: bool) -> dict:
-    """The point's ``tot``, ``wec``, ``bec`` (and ``hist``), with its
-    ``chunks`` and, for the work counts, ``iters_sum`` (the consumed
-    chunks' iteration counts summed) and ``tail_words`` / ``tail_iters``
-    (the words whose count falls in the histogram's last bin, and their
-    counts summed). ``decode(llr)`` -> (x_hat, iters)."""
+                 adaptive: bool, track_hist: bool,
+                 rank_batch: Optional[int] = None,
+                 host_sum: Optional[Callable] = None) -> dict:
+    """The point's ``tot``, ``wec``, ``bec`` (and ``hist``), summed over
+    the ranks, with its ``chunks`` and, for the work counts of this rank's
+    words, ``iters_sum`` (the consumed chunks' iteration counts summed)
+    and ``tail_words`` / ``tail_iters`` (the words whose count falls in the
+    histogram's last bin, and their counts summed). ``decode(llr)`` ->
+    (x_hat, iters)."""
     device = gen.device
+    rank_batch = rank_batch or batch
     ready: list = []                # (tally, iterations) decoded ahead
 
     def chunk_tally(k: int) -> tuple:
@@ -68,12 +78,12 @@ def replay_point(*, channel: str, codeword: int, param: float, batch: int,
             block = dispatched - len(ready)
             llr = torch.cat([
                 channels.llr(channel, codeword,
-                             channels.draw(channel, (batch, n_var), gen,
+                             channels.draw(channel, (rank_batch, n_var), gen,
                                            device), param)
                 for _ in range(block)])
             x_hat, iters = decode(llr)
             for j in range(block):
-                sl = slice(j * batch, (j + 1) * batch)
+                sl = slice(j * rank_batch, (j + 1) * rank_batch)
                 tail = iters[sl] >= HIST_LEN - 1
                 ready.append((tally(x_hat[sl], codeword,
                                     iters[sl] if track_hist else None),
@@ -89,6 +99,8 @@ def replay_point(*, channel: str, codeword: int, param: float, batch: int,
         nonlocal tot, wec, bec, hist, consumed, iters_sum, tail_words, \
             tail_iters
         t, n_iters, n_tail, tail_sum = chunk_tally(consumed)
+        if host_sum is not None:
+            t = host_sum(t)
         consumed += 1
         wec += int(t[0])
         bec += int(t[1])

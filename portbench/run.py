@@ -11,6 +11,14 @@ the window opens at the first point and closes at the end of the first
 point that ends after ``--seconds``. After it, a sample of the points is
 replayed by the plain reference and compared (``check.py``).
 
+A cell on several chips runs one process per rank, each on its own card,
+started as the CLI's ``--mesh`` starts its ranks; each rank runs the
+cell's runner on a batch mesh over all of them. The window is rank 0's
+host clock, and all ranks stop after the same point. Every rank replays
+the checked points on its own stream; a traced run traces every rank,
+and the per-layer metrics read rank 0's trace. Rank 0's result is the one
+printed, by this process.
+
 With ``--trace 0`` the result line holds the cell's end-to-end metrics;
 with ``--trace 1`` the window runs under a CUDA-only profiler and the line
 holds its per-layer metrics, read from the trace by ``metrics/<name>.py``.
@@ -18,9 +26,10 @@ The last lines on standard error, and the result line's last key, give
 each number compared beside its limit.
 
 Exits non-zero with no result line where CUDA has fewer devices than the
-cell's chips, where the program cannot be imported, or where JAX or the
-JAX package is loaded when the window closes or when the result line is
-about to be printed (after the reference and the readers).
+cell's chips, where the program cannot be imported, where a rank fails,
+or where JAX or the JAX package is loaded when the window closes (in any
+rank) or when the result line is about to be printed (after the reference
+and the readers).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import os  # noqa: E402
 import shutil  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
+from typing import Optional  # noqa: E402
 
 from portbench import spec  # noqa: E402
 
@@ -47,6 +57,8 @@ CACHE_DIRS = {"TORCH_EXTENSIONS_DIR": "torch_extensions",
 THREAD_VARS = ("OMP_NUM_THREADS", "MKL_NUM_THREADS")
 # Host-clock marks of set-up's parts before ``run_cell``, set by ``main``.
 MARKS: dict = {}
+# What each rank of a cell on several runs (``run_ranks``).
+RANK_CELL = "portbench.run:rank_cell"
 
 
 def parse_args(argv=None):
@@ -97,17 +109,74 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
              t_start: float = T_START) -> tuple:
     """One run of ``cell``: (result line as a dict, stderr check lines).
     ``overrides`` (``run_config``, ``traffic`` and top-level keys of the
-    configuration) shrink a cell for the CPU tests."""
+    configuration) shrink a cell for the CPU tests. A cell on one chip
+    runs in this process; on several, in one process per rank
+    (``run_ranks``)."""
+    if cell["chips"] > 1:
+        return run_ranks(cell, seed, seconds, trace, device, overrides,
+                         t_start)
+    return _run(cell, seed, seconds, trace, device, overrides, t_start,
+                dict(MARKS))
+
+
+def run_ranks(cell: dict, seed: int, seconds: float, trace: bool,
+              device: str, overrides: Optional[dict],
+              t_start: float) -> tuple:
+    """A cell on ``chips`` ranks, one process and one card each, started
+    as the CLI's ``--mesh`` starts its ranks (the program's
+    ``parallel.mesh.spawn``, over the configuration's backend): rank 0's
+    (result line, check lines). A rank that fails ends the run."""
+    from ldpc_decoders_tpu_torch.parallel import mesh
+
+    config, _ = merged(cell, overrides or {})
+    args = (cell, seed, seconds, trace, device, overrides, t_start,
+            dict(MARKS))
+    return mesh.spawn(RANK_CELL, cell["chips"], args, device=device,
+                      backend=config.get("backend"))[0]
+
+
+def rank_cell(cell: dict, seed: int, seconds: float, trace: bool,
+              device: str, overrides: Optional[dict], t_start: float,
+              marks: dict) -> Optional[tuple]:
+    """One rank of ``run_ranks``, in the process group ``spawn`` joined:
+    the cell's runner on a batch mesh over all the ranks. Rank 0 returns
+    the run's (result line, check lines), the others None."""
+    import torch
+
+    from ldpc_decoders_tpu_torch.parallel import mesh
+    from portbench.ranks import Ranks
+
+    marks = dict(marks, ranks=time.perf_counter())
+    torch.set_num_threads(1)
+    grid = mesh.batch_mesh(cell["chips"])
+    ranks = Ranks.joined()
+    out = _run(cell, seed, seconds, trace, device, overrides, t_start, marks,
+               ranks, grid)
+    refuse_forbidden("by the end of the run")
+    return out if ranks.rank == 0 else None
+
+
+def _run(cell: dict, seed: int, seconds: float, trace: bool, device: str,
+         overrides: Optional[dict], t_start: float, marks: dict,
+         ranks=None, mesh=None) -> tuple:
+    """The run of ``run_cell`` in this process, as one rank of ``ranks``
+    on ``mesh`` where the cell runs on several. The window is rank 0's: it
+    opens once every rank has warmed up, and after each point rank 0 says
+    whether it closes, so every rank stops after the same point."""
     import torch
 
     from portbench import check, trace as tr
+    from portbench.ranks import ONE
 
+    ranks = ranks or ONE
     config, traffic = merged(cell, overrides or {})
-    marks = dict(MARKS, harness=time.perf_counter())
+    marks = dict(marks, harness=time.perf_counter())
     entry = spec.entry(config["entry"])
     work = tempfile.mkdtemp(prefix="portbench-")
     try:
-        session = entry.open_session(config, traffic, seed, device, work)
+        session = entry.open_session(config, traffic, seed, device, work,
+                                     **({} if mesh is None
+                                        else {"mesh": mesh}))
         marks["session"] = time.perf_counter()
         session.warm_up()
         if device == "cuda":
@@ -116,6 +185,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         window = tr.Window() if trace else None
         if window:
             window.open()
+        ranks.barrier()
         points = []
         t_open = time.perf_counter()
         setup_s = t_open - t_start
@@ -126,13 +196,15 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
             b = time.perf_counter()
             points.append(dict(res, idx=i, start=a, end=b))
             i += 1
-            if b - t_open >= seconds:
+            if ranks.agree(b - t_open >= seconds):
                 break
         t_close = b
         # set-up's parts: torch's import, CUDA's start (its devices
-        # counted), the harness's modules, the program's import and its
-        # runner, the warm-up chunk (its kernels' build or load included),
-        # and in a traced run the profiler's start
+        # counted), on several ranks the ranks' start (each its own
+        # process, torch's import and the process group), the harness's
+        # modules, the program's import and its runner, the warm-up chunk
+        # (its kernels' build or load included), and in a traced run the
+        # profiler's start
         if window:
             marks["profiler"] = t_open
         phases = {"setup": setup_s}
@@ -150,12 +222,14 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
                                     - phases["trace_stop"])
         refuse_forbidden("by the window's close")
         if device == "cuda":
+            peaks = ranks.gather(torch.cuda.max_memory_allocated())
             dev = {"platform": "gpu",
-                   "kind": torch.cuda.get_device_name(0),
+                   "kind": torch.cuda.get_device_name(),
                    "count": cell["chips"],
-                   "memory_peak_bytes": int(torch.cuda.max_memory_allocated(0))}
+                   "memory_peak_bytes": int(max(peaks))}
         else:
-            dev = {"platform": "cpu", "kind": "cpu", "count": 1,
+            peaks = [0] * ranks.size
+            dev = {"platform": "cpu", "kind": "cpu", "count": ranks.size,
                    "memory_peak_bytes": 0}
         batch = session.batch
         saver_path = session.saver_path
@@ -166,7 +240,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
             torch.cuda.empty_cache()
         t_ref = time.perf_counter()
         nums = check.check(points, config, traffic, seed, spec.ROOT, device,
-                           saver_path)
+                           saver_path, ranks)
         phases["reference"] = time.perf_counter() - t_ref
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -177,6 +251,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     t_metrics = time.perf_counter()
     out = {"correct": correct, "attempted": len(points),
            "failed": nums["failed"], "metrics": e2e, "device": dev}
+    per_rank = {"memory_peak_bytes": [int(p) for p in peaks]}
     if trace:
         tables = check.load_tables(spec.ROOT, config, "cpu")
         ctx = tr.Context(
@@ -184,19 +259,28 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
             config=config, traffic=traffic, batch=batch,
             graph={"n_var": tables.n_var, "n_edge": tables.n_edge,
                    "dc": int(tables.chk_var.shape[1])},
-            reference=nums["reference"], kernels=tr.port_kernels(spec.ROOT))
+            reference=nums["reference"], kernels=tr.port_kernels(spec.ROOT),
+            ranks=ranks.size)
         layer = {}
         for m in cell["per_layer"]:
             value = spec.metric_reader(m["name"]).read(ctx)
+            per_rank[m["name"]] = [None if v != v else v for v in
+                                   ranks.gather(float("nan") if value is None
+                                                else value)]
             if value is not None:
                 layer[m["name"]] = {"value": value, "unit": m["unit"]}
         out["metrics"] = layer
-        out["device"].update(busy_s=ctx.busy(), window_s=ctx.window_s)
+        busy = ranks.gather(ctx.busy())
+        per_rank["busy_s"] = busy
+        out["device"].update(busy_s=sum(busy) / len(busy),
+                             window_s=ctx.window_s)
         out["breakdown"] = tr.breakdown(ctx)
         out["traced_end_to_end"] = e2e
         phases["metrics"] = time.perf_counter() - t_metrics
     out["phases_s"] = phases
     out["points_checked"] = nums["points_checked"]
+    if ranks.size > 1:
+        out["per_rank"] = per_rank
     out["checks"] = checks
     lines = [f"phase {k}: {v:.3f} s" for k, v in phases.items()]
     lines += [f"check {k}: {c['value']} (limit {c['limit']})"

@@ -38,9 +38,9 @@ def program_spans(ctx) -> Optional[list]:
     return spans or None
 
 
-def ms_per_point(ctx, name: str, self_time: bool = False) -> Optional[float]:
-    """Milliseconds per window point of the ``name`` spans inside the
-    window; with ``self_time``, less the time of their child spans."""
+def span_ms(ctx, name: str, self_time: bool = False) -> Optional[float]:
+    """Milliseconds of the ``name`` spans inside the window; with
+    ``self_time``, less the time of their child spans."""
     spans = program_spans(ctx)
     if spans is None:
         return None
@@ -52,7 +52,13 @@ def ms_per_point(ctx, name: str, self_time: bool = False) -> Optional[float]:
     if self_time:
         ids = {s.id for s in spans if s.name == name}
         total -= sum(inside(s) for s in spans if s.parent in ids)
-    return 1e3 * total / len(ctx.points)
+    return 1e3 * total
+
+
+def ms_per_point(ctx, name: str, self_time: bool = False) -> Optional[float]:
+    """``span_ms`` per window point."""
+    total = span_ms(ctx, name, self_time)
+    return None if total is None else total / len(ctx.points)
 
 
 def name_at(spans: list, t: float) -> str:

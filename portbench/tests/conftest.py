@@ -14,6 +14,12 @@ TINY = {
                                         "max_words": 64}},
     "ldpc1200_msa.sweep": {"run_config": {"batch": 32},
                            "traffic": {"min_wec": 3}},
+    # four ranks over gloo on the CPU, 16 words a rank a chunk, at 2.0 dB
+    # so that every rank's chunks hold word errors
+    "ldpc1200_msa_x4.deep16m": {"run_config": {"batch": 64},
+                                "traffic": {"points": [2.0],
+                                            "max_words": 192},
+                                "backend": None},
 }
 
 

@@ -22,8 +22,11 @@ def test_control_fails_on_the_cpu(bench, name):
 def test_control_fails_on_the_card(bench, name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    small = {"traffic": {"max_words": 4 * 16384}} if name.endswith(
-        ".deep") else {}
+    # a few chunks of the cell's batch: the four ranks of the mesh cell
+    # share the card over gloo, each with one chunk in flight
+    small = {".deep": {"traffic": {"max_words": 4 * 16384}},
+             ".deep16m": {"traffic": {"max_words": 262144}}}.get(
+        name[name.rindex("."):], {})
     out = control.control_numbers(spec.cell(bench, name), 2 ** 33 + 12,
                                   "cuda", small)
     assert out["fails"]

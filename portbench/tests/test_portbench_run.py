@@ -16,7 +16,10 @@ import torch
 from portbench import run, spec, trace
 from portbench.tests.conftest import TINY
 
-CELLS = sorted(TINY)
+# The cells on one chip: this process runs them (``test_portbench_mesh.py``
+# runs the cell on four ranks).
+CELLS = sorted(w["name"] for w in spec.benchmark()["workloads"]
+               if w["chips"] == 1)
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
@@ -41,6 +44,24 @@ def test_tiny_run_prints_a_well_formed_line(bench, name):
     assert lines[-len(back["checks"]):] == [
         f"check {k}: {c['value']} (limit {c['limit']})"
         for k, c in back["checks"].items()]
+
+
+def test_a_one_chip_line_keeps_its_keys(bench, monkeypatch):
+    """A cell on one chip runs in this process, as it did before cells on
+    several ranks: the same keys, set-up phases and device fields."""
+    def refuse(*a, **kw):
+        raise AssertionError("a one-chip cell started ranks")
+
+    monkeypatch.setattr(run, "run_ranks", refuse)
+    out, _ = tiny_run(bench, "ldpc1200_msa.deep")
+    assert list(out) == KEYS + ["phases_s", "points_checked", "checks"]
+    assert out["device"] == {"platform": "cpu", "kind": "cpu", "count": 1,
+                             "memory_peak_bytes": 0}
+    assert list(out["phases_s"]) == [
+        "setup", "setup.harness", "setup.session", "setup.warm_up",
+        "window", "reference"]
+    assert out["attempted"] == 1 and out["points_checked"] == 1
+    assert out["checks"] == {"tally_diff": {"value": 0, "limit": 0}}
 
 
 def _flip(x_hat):
@@ -244,6 +265,22 @@ def test_readers_on_a_synthetic_trace(bench):
                                ["run_param 3.0", pytest.approx(2.0)],
                                ["run_param 3.0", pytest.approx(0.5)]]
     assert len(bd["idle_gaps"]) <= 10
+
+
+def test_the_window_reads_only_what_lies_between_its_markers(monkeypatch):
+    """The profiler runs past each marker (``EDGE_S``), so the trace may
+    hold operations outside them: none is read, and the rest are placed on
+    the host's clock through the two markers."""
+    w = trace.Window()
+    w.marks = [100.0, 110.0]
+    events = [("before", 900.0, 5.0), (trace.MARKER, 1000.0, 1.0),
+              ("kernel", 4000.0, 2000.0), (trace.MARKER, 11000.0, 1.0),
+              ("after", 11500.0, 5.0)]
+    monkeypatch.setattr(w, "_device_events", lambda: events)
+    ops = w.ops()
+    assert [op.name for op in ops] == ["kernel"]
+    assert ops[0].start == pytest.approx(103.0)
+    assert ops[0].end == pytest.approx(105.0)
 
 
 def test_readers_find_nothing_in_an_empty_trace(bench):

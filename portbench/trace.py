@@ -6,7 +6,10 @@ benchmark's own host spans around each point.
 The trace's clock is tied to the host's by two marker kernels
 (``torch.cuda._sleep``), launched just after a synchronize at the window's
 open and close: a device time maps to the host's clock linearly through
-the two.
+the two, and only the operations between them are read. The profiler runs
+``EDGE_S`` before the first marker and after the last: the trace's device
+stamps stray from its host stamps by up to milliseconds, and a marker
+stamped outside the profiler's own window is dropped.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Callable, List, Optional
 import torch
 
 MARKER = "spin_kernel"
+EDGE_S = 0.02
 _GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
                      r"(\w+)\s*\(")
 
@@ -54,11 +58,13 @@ class Window:
         self.prof = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA])
         self.prof.start()
+        time.sleep(EDGE_S)
         self._mark()
 
     def close(self) -> None:
         self._mark()
         torch.cuda.synchronize()
+        time.sleep(EDGE_S)
         self.prof.stop()
 
     def _device_events(self) -> list:
@@ -84,7 +90,8 @@ class Window:
             return h0 + (us * 1e-6 - d0) * scale
 
         return [Op(name, host(ts), host(ts + dur))
-                for name, ts, dur in dev if MARKER not in name]
+                for name, ts, dur in dev if MARKER not in name
+                and marks[0][1] <= ts <= marks[1][1]]
 
 
 def union(intervals) -> list:
@@ -115,7 +122,10 @@ class Context:
     """What a per-layer metric's reader reads: the device's operations
     inside the window (host clock), the window, the points with their host
     spans and results, the cell's configuration and traffic, the graph's
-    sizes and the reference's counts on the words it checked."""
+    sizes and the reference's counts on the words it checked. On several
+    ranks it is rank 0's: its trace, its share of the batch (``batch``),
+    its own words (``words``, the points' summed ``tot`` over ``ranks``)
+    and the reference's counts on its words."""
     ops: List[Op]
     t_open: float
     t_close: float
@@ -126,6 +136,7 @@ class Context:
     graph: dict
     reference: dict
     kernels: dict
+    ranks: int = 1
 
     @property
     def window_s(self) -> float:
@@ -133,7 +144,7 @@ class Context:
 
     @property
     def words(self) -> int:
-        return sum(p["tot"] for p in self.points)
+        return sum(p["tot"] for p in self.points) // self.ranks
 
     @property
     def chunks(self) -> int:
