@@ -14,7 +14,8 @@ Each number compared is a count of differences, with the limit 0:
 - ``tally_diff``: |tot - tot'| + |wec - wec'| + |bec - bec'| summed over
   the points checked;
 - ``hist_diff``: the iteration histograms' differences, summed over bins
-  and points (decoders that keep one: ADMM);
+  and points (where the program's decoder keeps one: its file in
+  ``reference/decoders/`` says so);
 - ``saver_diff``: the values of the Saver file (tot, wec, wer, bec, ber,
   and the histogram's average and bins where kept) that differ from the
   reference's, or are missing, over every parameter the window wrote.
@@ -26,10 +27,10 @@ import json
 from typing import Optional
 
 import numpy as np
-import torch
 
+from portbench import spec
 from portbench.ranks import ONE, Ranks
-from portbench.reference import admm, codes, minsum, replay, seeding
+from portbench.reference import codes, replay, seeding
 
 LIMITS = {"tally_diff": 0, "hist_diff": 0, "saver_diff": 0}
 SAMPLE_SALT = 0x5A3E
@@ -38,21 +39,10 @@ SAMPLE_SALT = 0x5A3E
 CHECK_POINTS = 1
 
 
-def decoder(config: dict, tables, precision: Optional[str] = None):
-    """The reference decoder of a configuration: llr -> (x_hat, iters).
-    ``precision`` replaces the configuration's (the control): min-sum's
-    message type, or the type of ADMM's solution plane x."""
-    rc = config["run_config"]
-    if rc["decoder"] == "MSA":
-        dtype = getattr(torch, precision or rc.get("msg_dtype", "float32"))
-        return lambda llr: minsum.decode(llr, tables, rc["max_iter"], dtype)
-    if rc["decoder"] == "ADMM":
-        cap = rc["max_iter"] if rc["max_iter"] > 0 else rc["iter_cap"]
-        dtype = getattr(torch, precision or "float32")
-        return lambda llr: admm.decode(llr, tables, mu=rc["mu"],
-                                       eps=rc["eps"], max_iter=cap,
-                                       x_dtype=dtype)
-    raise ValueError(f"the reference has no decoder {rc['decoder']!r}")
+def reference(config: dict):
+    """The configuration's decoder in the plain reference: its
+    ``reference/decoders/<decoder>.py``."""
+    return spec.reference_decoder(config["run_config"]["decoder"])
 
 
 def load_tables(root: str, config: dict, device):
@@ -64,16 +54,17 @@ def replay_point(config: dict, traffic: dict, tables, seed: int, idx: int,
                  param: float, device, precision: Optional[str] = None,
                  ranks: Ranks = ONE) -> dict:
     rc = config["run_config"]
+    ref = reference(config)
     return replay.replay_point(
         channel=rc["channel"], codeword=rc["codeword"], param=param,
         batch=rc["batch"], n_var=tables.n_var,
         gen=seeding.point_generator(device, seed, idx, ranks.rank,
                                     ranks.size),
-        decode=decoder(config, tables, precision),
+        decode=ref.decoder(rc, tables, precision),
         min_wec=int(traffic["min_wec"]), max_words=traffic.get("max_words"),
         pipeline=rc.get("pipeline", 4),
         adaptive=rc.get("adaptive_pipeline", True),
-        track_hist=rc["decoder"] == "ADMM",
+        track_hist=ref.TRACK_ITER_HIST,
         rank_batch=rc["batch"] // ranks.size,
         host_sum=ranks.sum if ranks.size > 1 else None)
 
@@ -156,7 +147,7 @@ def check(points: list, config: dict, traffic: dict, seed: int, root: str,
         tail_iters += ref.get("tail_iters", 0)
     nums = {"points_checked": len(picked), "failed": failed,
             "checks": {"tally_diff": tally}}
-    if config["run_config"]["decoder"] == "ADMM":
+    if reference(config).TRACK_ITER_HIST:
         nums["checks"]["hist_diff"] = hist
     if saver_path:
         nums["checks"]["saver_diff"] = saver_diff(

@@ -2,13 +2,8 @@
 reference put in the program's place and computed in the nearest precision
 below the configuration's, compared with the reference as a run compares
 the program. Each of the cell's numbers must come out above its limit on
-some number for the control to fail, as it has to.
-
-- min-sum with bfloat16 messages: the control's messages are float8
-  (e4m3);
-- ADMM in float32: the control rounds the x-update's output, the solution
-  plane x, to bfloat16 (half its bytes), the rest float32. ADMM wholly in
-  bfloat16 never meets eps = 1e-5: every word would run to the 8000 cap.
+some number for the control to fail, as it has to. The precision, and the
+reason for it, is the decoder's file's (``reference/decoders/``).
 
     python3 -m portbench.control --workload <name> --seeds 1,2,3
 
@@ -30,8 +25,6 @@ import numpy as np
 
 from portbench import check, spec
 from portbench.ranks import ONE, Ranks
-
-LOWER = {"MSA": "float8_e4m3fn", "ADMM": "bfloat16"}
 
 
 def control_numbers(cell: dict, seed: int, device: str,
@@ -60,7 +53,8 @@ def _numbers(cell: dict, seed: int, device: str, overrides: dict,
 
     config, traffic = merged(cell, overrides or {})
     tables = check.load_tables(spec.ROOT, config, device)
-    low = LOWER[config["run_config"]["decoder"]]
+    ref_decoder = check.reference(config)
+    low = ref_decoder.control_precision(config["run_config"])
     n = len(traffic["points"])
     rng = np.random.default_rng([seed, check.SAMPLE_SALT])
     first = int(rng.integers(0, 16 * n))
@@ -78,7 +72,7 @@ def _numbers(cell: dict, seed: int, device: str, overrides: dict,
         want, have = (check.status(r, tables.n_var) for r in (ref, got))
         saved += sum(int(have.get(k) != v) for k, v in want.items())
     nums = {"tally_diff": tally}
-    if config["run_config"]["decoder"] == "ADMM":
+    if ref_decoder.TRACK_ITER_HIST:
         nums["hist_diff"] = hist
     if traffic.get("saver"):
         nums["saver_diff"] = saved

@@ -7,7 +7,7 @@ card's 50 MB L2 (2048 x 2640 float32 is 21.6 MB), C1 reads it from L2 just
 after ``torch.rand`` wrote it, and the share can pass 100%. So the metric
 is reported only in cells whose chunks are larger (16384 x 1200, 78.6 MB)."""
 
-from portbench import roofline
+from portbench import roofline, spec
 
 
 def read(ctx):
@@ -15,7 +15,8 @@ def read(ctx):
     if t <= 0:
         return None
     n = ctx.graph["n_var"]
-    hist = ctx.config["run_config"]["decoder"] == "ADMM"
+    hist = spec.reference_decoder(
+        ctx.config["run_config"]["decoder"]).TRACK_ITER_HIST
     n_bytes = (roofline.transmit(ctx.words, n)
                + roofline.tally(ctx.words, ctx.chunks, n, hist))
     return 100.0 * roofline.bound_s(n_bytes, 0) / t

@@ -8,6 +8,10 @@ from the program and importing nothing of it (nor JAX).
 - ``channels``: the channel's draw and LLRs, in the runner's float32 order;
 - ``minsum`` and ``admm``: the plain decoders, in the arithmetic order the
   program states (its CUDA kernels equal its plain versions bit for bit);
+- ``decoders/``: one file per decoder a configuration names
+  (``decoders/<decoder>.py``, found by that name): the plain decoder as a
+  run config sets it, the control's precision, and whether the program
+  keeps the iteration histogram;
 - ``replay``: a whole point (the runner's dispatch, consume, adaptive
   pipeline and stop rule) replayed from the seed, with its tallies.
 """

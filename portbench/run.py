@@ -25,8 +25,10 @@ holds its per-layer metrics, read from the trace by ``metrics/<name>.py``.
 The last lines on standard error, and the result line's last key, give
 each number compared beside its limit.
 
-Exits non-zero with no result line where CUDA has fewer devices than the
-cell's chips, where the program cannot be imported, where a rank fails,
+Exits non-zero with no result line where the cell's decoder has no plain
+reference (``reference/decoders/<decoder>.py``; exit code 1, before
+set-up), where CUDA has fewer devices than the cell's chips, where the
+program cannot be imported, where a rank fails,
 or where JAX or the JAX package is loaded when the window closes (in any
 rank) or when the result line is about to be printed (after the reference
 and the readers).
@@ -295,7 +297,11 @@ def main(argv=None) -> int:
     for var in THREAD_VARS:
         os.environ[var] = "1"
     bench = spec.benchmark()
-    cell = spec.cell(bench, args.workload)
+    try:
+        cell = spec.cell(bench, args.workload)
+    except (KeyError, FileNotFoundError) as e:
+        print(f"refused: {e.args[0]}", file=sys.stderr)
+        return 1
     import torch
 
     MARKS["torch"] = time.perf_counter()

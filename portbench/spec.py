@@ -1,8 +1,9 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the root of
 the checkout names the cells (a configuration and a traffic mix each) and
 the metrics; ``configs/<config>.json``, ``traffic/<mix>.json``,
-``entries/<entry>.py`` and ``metrics/<metric>.py`` hold what belongs to
-each. Nothing here imports the program."""
+``entries/<entry>.py``, ``metrics/<metric>.py`` and
+``reference/decoders/<decoder>.py`` hold what belongs to each. Nothing
+here imports the program."""
 
 from __future__ import annotations
 
@@ -41,13 +42,15 @@ def cell(bench: dict, workload: str) -> dict:
     if not found:
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json")
     w = found[0]
+    config = load_json(config_file(bench, w["config"]))
+    reference_decoder_file(config["run_config"]["decoder"])
 
     def reports(m):
         return workload in m.get("workloads", [workload])
 
     return {
         "name": workload, "chips": int(w["chips"]),
-        "config": load_json(config_file(bench, w["config"])),
+        "config": config,
         "traffic": load_json(traffic_file(w["traffic"])),
         "end_to_end": [m for m in bench["end_to_end"] if reports(m)],
         "per_layer": [m for m in bench["per_layer"] if reports(m)],
@@ -57,7 +60,8 @@ def cell(bench: dict, workload: str) -> dict:
 def _module(kind: str, name: str):
     path = os.path.join(HERE, kind, f"{name}.py")
     spec = importlib.util.spec_from_file_location(
-        f"portbench.{kind}.{name.replace('.', '_')}", path)
+        f"portbench.{kind.replace('/', '.')}.{name.replace('.', '_')}",
+        path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -79,3 +83,22 @@ def metric_reader(name: str):
         if os.path.exists(os.path.join(HERE, "metrics", f"{stem}.py")):
             return _module("metrics", stem)
     raise KeyError(f"no reader in metrics/ for {name!r}")
+
+
+def reference_decoder_file(decoder: str) -> str:
+    """``reference/decoders/<decoder>.py``; a decoder with no file there
+    has no reference, and its cell is refused."""
+    path = os.path.join(HERE, "reference", "decoders", f"{decoder}.py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"the reference has no decoder {decoder!r}: add "
+            f"{os.path.relpath(path, ROOT)} (reference/decoders/"
+            f"__init__.py says what it holds)")
+    return path
+
+
+def reference_decoder(decoder: str):
+    """The plain reference of the decoder a configuration names:
+    ``reference/decoders/<decoder>.py``."""
+    reference_decoder_file(decoder)
+    return _module("reference/decoders", decoder)

@@ -34,7 +34,8 @@ def ref_tables(name):
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(
-    spec.HERE, "reference", "*.py"))), ids=os.path.basename)
+    spec.HERE, "reference", "**", "*.py"), recursive=True)),
+    ids=lambda p: os.path.relpath(p, os.path.join(spec.HERE, "reference")))
 def test_reference_imports_nothing_of_the_program(path):
     with open(path) as fp:
         tree = ast.parse(fp.read())
